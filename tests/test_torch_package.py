@@ -1,0 +1,61 @@
+"""Package rules of the PyTorch port (ray_tpu_torch): it imports neither
+JAX nor anything of ray_tpu, and its entry points run on the card unless
+the caller asks for the CPU."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu_torch import interop, models
+from ray_tpu_torch.llm import LLMConfig, LLMEngine, model_runner
+from ray_tpu_torch.ops import layers
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import ray_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__,
+                                               "ray_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "ray_tpu"
+             or m.startswith("ray_tpu."))
+print(len(names), bad)
+"""
+
+
+def test_import_pulls_in_neither_jax_nor_ray_tpu():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_modules, bad = out.stdout.split(" ", 1)
+    assert int(n_modules) >= 12
+    assert bad.strip() == "[]"
+
+
+ENTRY_POINTS = {
+    "init_params": lambda: models.init_params(torch.Generator(), models.tiny()),
+    "init_kv_cache": lambda: models.init_kv_cache(models.tiny(), 1, 8),
+    "init_slot_cache": lambda: model_runner.init_slot_cache(models.tiny(), 1, 8),
+    "rope_frequencies": lambda: layers.rope_frequencies(8, 4),
+    "params_from_jax": lambda: interop.params_from_jax({"w": np.zeros(2)}),
+    "LLMEngine": lambda: LLMEngine(LLMConfig(model="tiny")),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_entry_point_defaults_to_cuda(entry):
+    """Called without device=, an entry point targets the card; on a
+    machine with no CUDA it fails where torch fails instead of running
+    on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device; the default succeeds")
+    with pytest.raises((RuntimeError, AssertionError)):
+        ENTRY_POINTS[entry]()

@@ -9,6 +9,7 @@ Phases, in order; any failed check exits non-zero:
                at the shapes the main path gives it; times of the kernel,
                the plain version and the library call that computes the
                same function; the bound for the same work on this card.
+               The flash forward, then the backward pair (dQ, dK/dV).
   3. forward — the main path, part 1: GPT-2 124M (full width, random
                weights from a seed) forward at B=4, T=1024 with
                attn_impl="flash", held against attn_impl="reference";
@@ -16,9 +17,16 @@ Phases, in order; any failed check exits non-zero:
   4. serve   — the main path, part 2: the LLM engine on GPT-2 124M
                answers 8 byte-tokenised prompts, greedy, 32 tokens each;
                request 0 held against models.generate.
+  5. train   — the main path, part 3: GPT-2 124M (full width, random
+               weights from seed 0) trained at B=8, T=1024 with
+               attn_impl="flash", fused chunked CE and FusedClipAdamW. fp32:
+               one step's loss and every gradient leaf held against
+               attn_impl="reference"; bf16: 6 steps, the loss must fall and
+               each of the three kernels must launch once per layer per
+               step; step time, tokens/s and one profiled step.
 
 Kernel launch counts are set to 0 just before phase 3 and read just
-after phase 4; launches made in phase 2 do not count.
+after phase 5; launches made in phase 2 do not count.
 
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
@@ -56,13 +64,17 @@ def _peaks(name: str):
 
 
 def _time_ms(fn, *, iters: int = 20, flush=None) -> float:
-    """Median device time of one call, by CUDA events. ``flush`` (a
+    """Median device time of one call, by CUDA events. A spin kernel of
+    about a millisecond holds the stream before each call, so the host
+    queues the call's launches ahead of the device and the events time
+    the device's work, not the host's gaps between launches. ``flush`` (a
     tensor larger than L2) is rewritten before each call so the call
     reads its inputs from device memory, as the bound assumes."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(iters):
+        torch.cuda._sleep(2_000_000)  # clock cycles
         if flush is not None:
             flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
@@ -97,12 +109,37 @@ def phase_setup():
     return smi.splitlines()[0]
 
 
+def _attended_pairs(tq, tk, causal):
+    """(query, key) pairs the attention computes for one (batch, head):
+    causal masks key j for query i < j (global positions from 0)."""
+    if not causal:
+        return tq * tk
+    n = min(tq, tk)
+    return n * (n + 1) // 2 + max(tq - tk, 0) * tk
+
+
 def _attention_bound_ms(b, t, h, d, dtype, causal, card):
     bw, flops = _peaks(card)
     esize = torch.empty((), dtype=dtype).element_size()
     nbytes = 4 * b * t * h * d * esize + b * h * t * 4  # q,k,v in; O, LSE out
     pairs = t * (t + 1) // 2 if causal else t * t
     ops = 4 * b * h * d * pairs
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / flops[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _attention_bwd_bound_ms(b, tq, tk, h, d, dtype, causal, card, *, dq: bool):
+    """Bound of one backward pass. Both read q, dO [B,Tq,H,D], k, v
+    [B,Tk,H,D] and the f32 LSE and delta [B*H,Tq]; the dQ pass writes dQ
+    and does 3 products of length D per attended pair (S, dP, dQ: 6*D
+    operations), the dK/dV pass writes dK and dV and does 4 (S, dP, dV,
+    dK: 8*D)."""
+    bw, flops = _peaks(card)
+    esize = torch.empty((), dtype=dtype).element_size()
+    q_bytes, kv_bytes = b * tq * h * d * esize, b * tk * h * d * esize
+    reads = 2 * q_bytes + 2 * kv_bytes + 2 * b * h * tq * 4
+    nbytes = reads + (q_bytes if dq else 2 * kv_bytes)
+    ops = (6 if dq else 8) * b * h * d * _attended_pairs(tq, tk, causal)
     t_bytes, t_ops = nbytes / bw * 1e3, ops / flops[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -163,6 +200,135 @@ def phase_kernels(card: str):
                f"flash_fwd O error {err_o} > {tol_o} at {row['shape']} {dt}")
         _check(math.isfinite(err_lse) and err_lse <= tol_lse,
                f"flash_fwd LSE error {err_lse} > {tol_lse} at {row['shape']} {dt}")
+        results.append(row)
+    return results
+
+
+# Tolerances of the backward kernels against their plain version. A
+# gradient [B, T, H, D] is cut into tiles of 64 rows (the kernels' tile)
+# per batch and head; per type (rtol, atol, tile):
+#     |got - ref| <= rtol * |ref| + atol * rms(ref over its tile)
+# for every element, and ||got - ref|| <= tile * ||ref|| over every tile.
+# The scale is the tile's, not the tensor's: under the causal mask the
+# first keys' dK and dV are many times the typical value.
+#  rtol: both sides round an f32 result to the output type, so an
+#        element may differ by an ulp of its value: 2^-7 of it (bf16),
+#        2^-10 (fp16); fp32 sums in another order (64-row tiles and FMA
+#        sums in the kernels, 256-row blocks and matmuls in the plain
+#        version).
+#  atol, tile: the tensor cores take p and dS rounded to the input type
+#        where the plain version forms dV and dK from f32 p and dS; each
+#        term of those sums moves by up to half an ulp, an error that
+#        scales with the terms, not with the sum's value.
+#  Both are set at 2-3x the largest readings on an H100 over these
+#  cases and five seeds. A 1% error in half of dV, or dQ missing one
+#  key tile in half of its rows, fails them.
+_BWD_TOL = {torch.float32: (2.0 ** -20, 2.0 ** -14, 2.0 ** -19),
+            torch.bfloat16: (2.0 ** -7, 2.0 ** -4, 2.0 ** -7),
+            torch.float16: (2.0 ** -10, 2.0 ** -7, 2.0 ** -10)}
+_BWD_TILE = 64
+
+
+def _tiles(x):
+    """[B, T, H, D] as [B, H, ceil(T/64), 64*D] in f32, T padded with zeros."""
+    b, t, h, d = x.shape
+    x = torch.nn.functional.pad(x.float().transpose(1, 2), (0, 0, 0, -t % _BWD_TILE))
+    return x.reshape(b, h, -1, _BWD_TILE * d)
+
+
+def _grad_error(got, ref, dt) -> dict:
+    """A kernel's gradient against its plain version: the largest
+    |error|; the largest element error as a share of what _BWD_TOL allows
+    it (at most 1 to pass) and the largest tile error ||got - ref|| /
+    ||ref|| (at most the tile limit); beside them the median |ref|, the
+    median tile rms of ref, and what the element limit allows at both."""
+    rtol, atol, _ = _BWD_TOL[dt]
+    g, r = _tiles(got), _tiles(ref)
+    count = _tiles(torch.ones_like(ref[:1, :, :1])).sum(-1, keepdim=True)
+    diff = (g - r).abs()
+    ref_norm = r.norm(dim=-1, keepdim=True)
+    rms = ref_norm / count.sqrt()
+    allowed = (rtol * r.abs() + atol * rms).clamp_min(1e-30)
+    tile_err = diff.norm(dim=-1, keepdim=True) / ref_norm.clamp_min(1e-30)
+    median_ref, median_rms = ref.float().abs().median().item(), rms.median().item()
+    return {"max_abs_err": diff.max().item(),
+            "worst_share": (diff / allowed).max().item(),
+            "max_tile_err": tile_err.max().item(),
+            "median_abs_ref": median_ref, "median_tile_rms": median_rms,
+            "allowed_at_medians": rtol * median_ref + atol * median_rms}
+
+
+def _grad_within(e: dict, dt) -> bool:
+    """Whether a _grad_error reading meets _BWD_TOL."""
+    return (math.isfinite(e["max_abs_err"]) and e["worst_share"] <= 1.0
+            and e["max_tile_err"] <= _BWD_TOL[dt][2])
+
+
+def phase_kernels_bwd(card: str):
+    from ray_tpu_torch.ops._kernels import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from ray_tpu_torch.ops.attention import flash_backward_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    # (B, Tq, Tk, H, D, dtype, causal): the training shape of GPT-2 124M
+    # in every type, a long head_dim-128 shape, ragged T of 100 and 200 in
+    # both head dims, and a causal Tq < Tk case whose last key tiles meet
+    # no query.
+    cases = [(8, 1024, 1024, 12, 64, dt, causal)
+             for causal in (True, False)
+             for dt in (torch.bfloat16, torch.float16, torch.float32)]
+    cases += [(1, 2048, 2048, 32, 128, torch.bfloat16, True),
+              (2, 100, 100, 12, 64, torch.bfloat16, True),
+              (1, 100, 100, 4, 128, torch.float32, False),
+              (2, 200, 200, 4, 64, torch.float16, False),
+              (1, 200, 200, 4, 128, torch.float16, True),
+              (2, 64, 200, 4, 64, torch.bfloat16, True)]
+    results = []
+    for b, tq, tk, h, d, dt, causal in cases:
+        # q as the model makes it (a strided view of the fused projection),
+        # k and v strided views of one [B, Tk, H, 2D] tensor.
+        q = torch.randn((b, tq, h, 3 * d), generator=gen, device="cuda").to(dt)[..., :d]
+        k, v = torch.randn((b, tk, h, 2 * d), generator=gen,
+                           device="cuda").to(dt).split(d, dim=-1)
+        do = torch.randn((b, tq, h, d), generator=gen, device="cuda").to(dt)
+        o, lse = flash_fwd(q, k, v, causal=causal, return_lse=True)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(lse.shape).contiguous()
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
+        blocks = dict(block_q=min(256, tq), block_k=min(256, tk))
+        if tq % blocks["block_q"] or tk % blocks["block_k"]:
+            blocks = dict(block_q=tq, block_k=tk)
+        plain = flash_backward_plain(q, k, v, o, lse, do, causal=causal, **blocks)
+        torch.cuda.synchronize()
+        errs = {name: _grad_error(got, ref, dt)
+                for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), plain)}
+        ms_dq = _time_ms(lambda: flash_bwd_dq(q, k, v, do, lse, delta, causal=causal),
+                         flush=flush)
+        ms_dkv = _time_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal),
+                          flush=flush)
+        plain_ms = _time_ms(lambda: flash_backward_plain(q, k, v, o, lse, do, causal=causal,
+                                                         **blocks), iters=5, flush=flush)
+        # The library's gradient for the same dO: SDPA's backward alone,
+        # run again and again from one forward's saved graph.
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal)
+        library_ms = _time_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), flush=flush)
+        del out
+        row = {"shape": [b, tq, tk, h, d], "dtype": str(dt).split(".")[-1],
+               "causal": causal, "errors": errs,
+               "tol": dict(zip(("rtol", "atol", "norm"), _BWD_TOL[dt])),
+               "ms_dq": ms_dq, "ms_dkv": ms_dkv, "plain_ms": plain_ms,
+               "library_ms": library_ms}
+        for name, is_dq in (("dq", True), ("dkv", False)):
+            row[f"bound_ms_{name}"], row[f"bound_by_{name}"] = _attention_bwd_bound_ms(
+                b, tq, tk, h, d, dt, causal, card, dq=is_dq)
+        print("[kernels] flash_bwd " + json.dumps(row))
+        for name, e in errs.items():
+            _check(_grad_within(e, dt),
+                   f"flash_bwd {name} outside its tolerance at {row['shape']} "
+                   f"{dt} causal={causal}: {e}")
         results.append(row)
     return results
 
@@ -325,6 +491,100 @@ def phase_serve():
     return row
 
 
+# The flash gradients in fp32 against the reference path's: the two
+# differ only in the order of the attention's sums (64-row tiles in the
+# kernels, one masked softmax in the reference), carried through 12
+# layers, so each leaf agrees to 1e-3 of its largest |gradient|.
+_TRAIN_GRAD_TOL = 1e-3
+
+
+def phase_train():
+    import dataclasses
+
+    from ray_tpu_torch import models
+    from ray_tpu_torch.models.transformer import loss_and_grads
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops.optim import FusedClipAdamW
+
+    B, T, n_steps = 8, 1024, 6
+    # bench.py's GPT-2 124M training configuration, with the flash kernels.
+    cfg = models.gpt2_small(max_seq_len=T, remat=False, loss_chunk=4096,
+                            ce_impl="fused", ce_accuracy=False,
+                            attn_impl="flash")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens}
+    kernels = (_kernels.flash_fwd, _kernels.flash_bwd_dq, _kernels.flash_bwd_dkv)
+
+    def counts():
+        return [k.launches for k in kernels]
+
+    # fp32: one step's loss and gradients, flash against reference.
+    params = models.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                cfg, device="cuda")
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    before = counts()
+    metrics_f, grads_f = loss_and_grads(params, batch, f32)
+    _check([a - b for a, b in zip(counts(), before)] == [cfg.n_layers] * 3,
+           f"fp32 step launched {[a - b for a, b in zip(counts(), before)]} "
+           f"(fwd, dq, dkv), expected {cfg.n_layers} each")
+    metrics_r, grads_r = loss_and_grads(
+        params, batch, dataclasses.replace(f32, attn_impl="reference"))
+    loss_f, loss_r = metrics_f["loss"], metrics_r["loss"]
+    worst = 0.0  # the largest max|Δg| / max|g| over the leaves
+    for gf, gr in zip(grads_f, grads_r):
+        _check(bool(gf.isfinite().all()), "fp32 flash gradient is not finite")
+        rel = ((gf - gr).abs().max() / gr.abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, rel)
+    loss_err = abs(loss_f.item() - loss_r.item())
+    _check(loss_err <= 1e-4 * abs(loss_r.item()),
+           f"fp32 flash loss {loss_f.item()} vs reference {loss_r.item()}")
+    _check(worst <= _TRAIN_GRAD_TOL,
+           f"fp32 flash gradients differ from reference: worst leaf "
+           f"{worst} > {_TRAIN_GRAD_TOL} of its max |g|")
+    del grads_f, grads_r, params
+
+    # bf16: n_steps steps of the train step.
+    opt = FusedClipAdamW(learning_rate=3e-4, weight_decay=0.1, clip_norm=1.0)
+    state = models.init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                                    cfg, opt, device="cuda")
+    step = models.make_train_step(cfg, opt)
+    losses, norms, step_ms = [], [], []
+    for _ in range(n_steps):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"].item())  # a device-to-host sync
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(metrics["grad_norm"].item())
+        per_step = [a - b for a, b in zip(counts(), before)]
+        _check(per_step == [cfg.n_layers] * 3,
+               f"a bf16 step launched {per_step} (fwd, dq, dkv), expected "
+               f"{cfg.n_layers} each")
+    _check(all(math.isfinite(x) for x in losses + norms),
+           f"non-finite loss or grad_norm: {losses} {norms}")
+    _check(losses[-1] < losses[0], f"bf16 loss did not fall: {losses}")
+    median_ms = statistics.median(step_ms[1:])  # the first step warms up
+    row = {"batch": B, "seq": T, "fp32_loss_flash": loss_f.item(),
+           "fp32_loss_abs_err": loss_err,
+           "fp32_worst_leaf_grad_err_share": worst,
+           "bf16_losses": losses, "bf16_grad_norms": norms,
+           "bf16_step_ms": step_ms, "bf16_step_ms_median": median_ms,
+           "bf16_tokens_per_s": B * T / (median_ms / 1e3),
+           "launches_per_step": cfg.n_layers}
+    print("[train] " + json.dumps(row))
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], m = step(holder["state"], batch)
+        m["loss"].item()
+
+    print("[train] profile bf16 step " + json.dumps(_profile(one_step, top=10)))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -332,27 +592,46 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = phase_setup()
-    kernel_rows = phase_kernels(card)
-    main_row = kernel_rows[0]  # GPT-2 124M attention: bf16, causal
+    fwd_row = phase_kernels(card)[0]  # GPT-2 124M attention: bf16, causal
+    bwd_row = phase_kernels_bwd(card)[0]  # its training shape: bf16, causal
 
-    from ray_tpu_torch.ops._kernels import flash_fwd
+    from ray_tpu_torch.ops._kernels import flash_bwd_dkv, flash_bwd_dq, flash_fwd
 
-    flash_fwd.launches = 0
+    kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    for k in kernels:
+        k.launches = 0
     with torch.inference_mode():
         phase_forward()
         phase_serve()
-    launches = flash_fwd.launches
-    _check(launches > 0, "the main path never launched the flash kernel")
-    summary = {"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "ray_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "ray_tpu/ops/attention.py:144",
-        "launches": launches,
-        "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-    }]}
+    phase_train()
+    for k in kernels:
+        _check(k.launches > 0, f"the main path never launched {k.__name__}")
+    source = {"flash_fwd": "flash_fwd.cu", "flash_bwd_dq": "flash_bwd.cu",
+              "flash_bwd_dkv": "flash_bwd.cu"}
+    replaces = {"flash_fwd": 144, "flash_bwd_dq": 298, "flash_bwd_dkv": 332}
+    # Per kernel: (max abs error, ms, bound ms, bound by). The backward
+    # pair shares one library time, SDPA's backward for the same dO.
+    numbers = {
+        "flash_fwd": (fwd_row["max_abs_err"], fwd_row["ms"], fwd_row["bound_ms"],
+                      fwd_row["bound_by"], fwd_row["plain_ms"], fwd_row["library_ms"]),
+        "flash_bwd_dq": (bwd_row["errors"]["dq"]["max_abs_err"], bwd_row["ms_dq"],
+                         bwd_row["bound_ms_dq"], bwd_row["bound_by_dq"],
+                         bwd_row["plain_ms"], bwd_row["library_ms"]),
+        "flash_bwd_dkv": (max(bwd_row["errors"][n]["max_abs_err"] for n in ("dk", "dv")),
+                          bwd_row["ms_dkv"], bwd_row["bound_ms_dkv"],
+                          bwd_row["bound_by_dkv"], bwd_row["plain_ms"],
+                          bwd_row["library_ms"]),
+    }
+    summary = {"kernels": []}
+    for k in kernels:
+        err, ms, bound_ms, bound_by, plain_ms, library_ms = numbers[k.__name__]
+        summary["kernels"].append({
+            "name": k.__name__, "route": "cuda",
+            "source": f"ray_tpu_torch/csrc/{source[k.__name__]}",
+            "replaces": f"ray_tpu/ops/attention.py:{replaces[k.__name__]}",
+            "launches": k.launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms})
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,7 @@ import torch
 from ray_tpu_torch.models.transformer import (
     TransformerConfig,
     _expand_gqa,
-    _layer_params,
+    _unstack_layers,
     lm_head,
 )
 from ray_tpu_torch.ops.attention import dot_product_attention
@@ -167,9 +167,8 @@ def sample_tokens(logits, temperature, rng):
 
 
 def _run_layers(body, x, params, cache, c):
-    for i in range(c.n_layers):
-        x = body(x, _layer_params(params["layers"], i), cache["k"][i],
-                 cache["v"][i])
+    for i, lp in enumerate(_unstack_layers(params["layers"])):
+        x = body(x, lp, cache["k"][i], cache["v"][i])
     return x
 
 

@@ -15,18 +15,28 @@ Two architectures behind one config:
   - ``arch="gpt2"``  — learned positions, LayerNorm, GELU MLP, tied head.
   - ``arch="llama"`` — RoPE, RMSNorm, SwiGLU, GQA, untied head.
 
-Inference only for now: the loss, the train step, sharding (``mesh``)
-and MoE layers arrive with later slices of the port.
+Training: ``lm_loss`` (full, chunked and fused chunked cross-entropy),
+``make_train_step`` with the fused clip+AdamW optimizer and gradient
+accumulation, and ``remat`` as torch.utils.checkpoint. Sharding
+(``mesh``) and MoE layers arrive with later slices of the port.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, replace
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ray_tpu_torch.ops.attention import attention, dot_product_attention
+from ray_tpu_torch.ops.optim import FusedClipAdamW
+from ray_tpu_torch.ops.tree import tree_leaves, tree_map, tree_unflatten
 from ray_tpu_torch.ops.layers import (
     apply_rope,
     gelu_mlp,
@@ -59,9 +69,10 @@ class TransformerConfig:
     # own sizes; a sequence these do not divide raises, as in ray_tpu).
     flash_block_q: int = 256
     flash_block_k: int = 256
-    # The fields below configure training in ray_tpu. They are kept so a
-    # ray_tpu config carries across field for field; this inference-only
-    # slice does not read them.
+    # Training. remat: recompute each layer in the backward
+    # (torch.utils.checkpoint); remat_policy "dots" keeps the products
+    # without a batch dimension. scan_layers is kept so a ray_tpu config
+    # carries across field for field: the port always loops over layers.
     remat: bool = True
     remat_policy: str = "full"
     scan_layers: bool = True
@@ -103,11 +114,11 @@ class TransformerConfig:
         return _DTYPES[self.dtype]
 
     def num_params(self) -> int:
-        return sum(math.prod(s) for s in _leaves(self.shapes()))
+        return sum(math.prod(s) for s in tree_leaves(self.shapes()))
 
     def shapes(self):
         """Nested dict of parameter shapes, mirroring the param tree."""
-        return _tree_map(lambda spec: spec[0], _param_specs(self))
+        return tree_map(lambda spec: spec[0], _param_specs(self))
 
 
 # -- presets ----------------------------------------------------------------
@@ -210,20 +221,6 @@ def tiny(**kw) -> TransformerConfig:
 
 # -- parameter tree -----------------------------------------------------------
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def _param_specs(c: TransformerConfig):
     """The parameter tree as (shape, init) leaves; init is "normal"
     (N(0, 0.02)), "residual" (N(0, 0.02/sqrt(2L)), residual-out
@@ -303,12 +300,17 @@ def init_params(rng: torch.Generator, config: TransformerConfig, *,
                         device=rng.device) * stds[init]
         return w.to(device=device, dtype=pdt)
 
-    return _tree_map(make, _param_specs(c))
+    return tree_map(make, _param_specs(c))
 
 
-def _layer_params(layers, i: int):
-    """Layer ``i``'s slice of the stacked layer tree (views)."""
-    return _tree_map(lambda a: a[i], layers)
+def _unstack_layers(layers):
+    """The stacked layer tree as one tree per layer (views). Each leaf is
+    split by one ``unbind``: under autograd its backward stacks the
+    per-layer gradients once, where indexing ``a[i]`` per layer would
+    build a full-size zero gradient of the leaf for every layer."""
+    split = tree_map(lambda a: a.unbind(0), layers)
+    n = len(next(tree_leaves(split)))
+    return [tree_map(lambda t, i=i: t[i], split) for i in range(n)]
 
 
 # -- forward ----------------------------------------------------------------
@@ -330,19 +332,31 @@ def _final_norm(x, params, c):
     return rms_norm(x, params["final_norm"]["w"])
 
 
-def lm_head(x, params, c):
-    """Float32 logits of hidden states ``x`` [..., D] in compute dtype:
-    the product of compute-dtype operands accumulated and returned in
-    f32 (ray_tpu's einsum with preferred_element_type=float32)."""
-    head = params["embed"]["tokens"].T if c.tied else params["lm_head"]
-    head = head.to(c.compute_dtype)
-    if x.is_cuda and x.dtype != torch.float32:
+def _matmul_f32(a, b):
+    """``a [..., K] @ b [K, N]`` accumulated and returned in f32 from
+    operands in their own dtype (ray_tpu's einsum with
+    preferred_element_type=float32)."""
+    if (a.is_cuda and a.dtype != torch.float32 and b.dtype == a.dtype
+            and not (torch.is_grad_enabled()
+                     and (a.requires_grad or b.requires_grad))):
         # One cuBLAS GEMM on the 16-bit operands with an f32 output (the
         # upcast product below runs ~10x slower on the card's FMA units).
-        out = torch.mm(x.reshape(-1, x.shape[-1]), head,
-                       out_dtype=torch.float32)
-        return out.reshape(*x.shape[:-1], head.shape[1])
-    return x.float() @ head.float()
+        # That GEMM has no gradient, so under autograd the operands are
+        # upcast instead.
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[1])
+    return a.float() @ b.float()
+
+
+def _head(params, c):
+    """The LM head [D, V] in compute dtype (tied: the token embedding)."""
+    head = params["embed"]["tokens"].T if c.tied else params["lm_head"]
+    return head.to(c.compute_dtype)
+
+
+def lm_head(x, params, c):
+    """Float32 logits of hidden states ``x`` [..., D] in compute dtype."""
+    return _matmul_f32(x, _head(params, c))
 
 
 def forward(params, tokens, config: TransformerConfig, *, mesh=None,
@@ -372,10 +386,12 @@ def forward(params, tokens, config: TransformerConfig, *, mesh=None,
         rope = rope_frequencies(c.head_dim, c.max_seq_len,
                                 theta=c.rope_theta, device=x.device)
 
+    layer = functools.partial(_block, c=c, rope=rope, positions=positions)
+    if c.remat and torch.is_grad_enabled():
+        layer = _checkpointed(layer, c.remat_policy)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(c.n_layers):
-        x, aux_i = _block(x, _layer_params(params["layers"], i), c,
-                          rope=rope, positions=positions)
+    for lp in _unstack_layers(params["layers"]):
+        x, aux_i = layer(x, lp)
         aux = aux + aux_i / c.n_layers
 
     x = _final_norm(x, params, c)
@@ -383,6 +399,30 @@ def forward(params, tokens, config: TransformerConfig, *, mesh=None,
         return (x, aux) if return_aux else x
     logits = lm_head(x, params, c)
     return (logits, aux) if return_aux else logits
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat_policy="dots" (jax's
+    dots_with_no_batch_dims_saveable): keep the products without a batch
+    dimension — the projections and MLP matmuls, which torch runs as mm,
+    addmm or a bmm over a batch of one — and recompute the rest, the
+    attention's batched products included."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(fn, policy: str):
+    """``fn`` recomputed in the backward (ray_tpu's jax.checkpoint):
+    everything for any policy but "dots", which keeps what _save_dots
+    saves."""
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _save_dots)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def _block(x, lp, c: TransformerConfig, *, rope, positions=None):
@@ -435,6 +475,290 @@ def _expand_gqa(k, v, c: TransformerConfig):
     return (k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2))
 
 
+# -- loss / train step ------------------------------------------------------
+
+def _perplexity(loss):
+    return torch.exp(torch.clamp(loss, max=20.0))
+
+
+def cross_entropy_loss(logits, targets, *, mask=None, z_loss: float = 0.0):
+    """Token-level CE in float32 with optional z-loss regularizer.
+
+    logits [B,T,V] (any dtype; upcast), targets [B,T] int, mask [B,T]
+    (1 = contributes). Returns (scalar loss, dict metrics).
+    """
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None].long())[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    correct = (logits.argmax(-1) == targets).float()
+    if mask is None:
+        loss = nll.sum() / nll.numel()
+        acc = correct.mean()
+    else:
+        mask = mask.float()
+        denom = mask.sum().clamp_min(1.0)
+        loss = (nll * mask).sum() / denom
+        acc = (correct * mask).sum() / denom
+    return loss, {"loss": loss, "accuracy": acc, "perplexity": _perplexity(loss)}
+
+
+def _ce_chunk_stats(logits, tb, mb, z_loss, accuracy):
+    """Shared per-chunk CE statistics: (nll_masked_sum, correct_masked_sum,
+    lse). logits fp32 [c,V]; tb [c] int; mb [c] fp32."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, tb[:, None].long())[:, 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    correct = (((logits.argmax(-1) == tb).float() * mb).sum() if accuracy
+               else torch.zeros((), dtype=torch.float32, device=logits.device))
+    return (nll * mb).sum(), correct, lse
+
+
+def _ce_chunk(xb, head, tb, mb, z_loss, accuracy):
+    nll_s, corr_s, _ = _ce_chunk_stats(_matmul_f32(xb, head), tb, mb, z_loss,
+                                       accuracy)
+    return nll_s, corr_s
+
+
+def chunked_ce_loss(x, head, targets, *, mask=None, z_loss: float = 0.0,
+                    chunk: int = 2048, accuracy: bool = True):
+    """CE over a chunked LM head: x [B,T,D] (final hidden), head [D,V].
+
+    Logits exist only a chunk at a time, each chunk under
+    torch.utils.checkpoint: the backward recomputes its logits instead of
+    keeping the [B,T,V] float32 tensor alive."""
+    B, T, D = x.shape
+    N = B * T
+    xf = x.reshape(N, D)
+    tf = targets.reshape(N)
+    mf = (mask.reshape(N).float() if mask is not None
+          else torch.ones((N,), dtype=torch.float32, device=x.device))
+    chunk = min(chunk, N)
+    nll_sum = correct_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s in range(0, N, chunk):
+        sl = slice(s, s + chunk)
+        nll_s, corr_s = checkpoint(_ce_chunk, xf[sl], head, tf[sl], mf[sl],
+                                   z_loss, accuracy, use_reentrant=False)
+        nll_sum = nll_sum + nll_s
+        correct_sum = correct_sum + corr_s
+    denom = mf.sum().clamp_min(1.0)
+    loss = nll_sum / denom
+    acc = correct_sum / denom
+    return loss, {"loss": loss, "accuracy": acc, "perplexity": _perplexity(loss)}
+
+
+def _fused_ce_scan(x, head, targets, mask, z_loss, chunk, accuracy,
+                   want_grads):
+    """Loop over token chunks. Returns ((nll_sum, correct_sum, denom),
+    grads): with want_grads, grads is (dx [N,D] f32, dhead [D,V] f32), the
+    gradients of x/head for a unit loss gradient, already including the
+    1/denom and z_loss terms; else None."""
+    N, D = x.shape
+    chunk = min(chunk, N)
+    denom = mask.sum().clamp_min(1.0)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    correct_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    dhead = (torch.zeros((D, head.shape[1]), dtype=torch.float32, device=x.device)
+             if want_grads else None)
+    dxs = []
+    for s in range(0, N, chunk):
+        xb, tb, mb = x[s:s + chunk], targets[s:s + chunk], mask[s:s + chunk]
+        logits = _matmul_f32(xb, head)
+        nll_s, corr_s, lse = _ce_chunk_stats(logits, tb, mb, z_loss, accuracy)
+        nll_sum += nll_s
+        correct_sum += corr_s
+        if not want_grads:
+            continue
+        # dloss/dlogits for loss = sum(nll*m)/denom:
+        #   (softmax * (1 + 2*z*lse) - onehot) * m / denom
+        # computed in place over the chunk's logits.
+        dl = logits.sub_(lse[:, None]).exp_()
+        if z_loss:
+            dl.mul_((1.0 + 2.0 * z_loss * lse)[:, None])
+        dl[torch.arange(xb.shape[0], device=x.device), tb.long()] -= 1.0
+        dl.mul_((mb / denom)[:, None])
+        # 16-bit product operands, f32 accumulation: the same precision as
+        # the rest of the model's backward.
+        dlc = dl.to(head.dtype)
+        dxs.append(_matmul_f32(dlc, head.t()))
+        dhead += _matmul_f32(xb.to(head.dtype).t(), dlc)
+    grads = (torch.cat(dxs), dhead) if want_grads else None
+    return (nll_sum, correct_sum, denom), grads
+
+
+class _FusedChunkedCE(torch.autograd.Function):
+    """fused_chunked_ce_loss: the gradients are computed in the forward
+    loop (dlogits = softmax - onehot), so each chunk's logits product runs
+    once per train step, and kept as the residuals in x's and head's
+    dtypes (ray_tpu's _fused_ce_fwd); the backward scales them by the
+    incoming loss gradient. The accuracy carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, head, targets, mask, z_loss, chunk, accuracy):
+        want = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
+        (nll_sum, correct_sum, denom), grads = _fused_ce_scan(
+            x, head, targets, mask, z_loss, chunk, accuracy, want_grads=want)
+        if want:
+            dx, dhead = grads
+            ctx.save_for_backward(dx.to(x.dtype), dhead.to(head.dtype))
+        acc = correct_sum / denom
+        ctx.mark_non_differentiable(acc)
+        return nll_sum / denom, acc
+
+    @staticmethod
+    def backward(ctx, g_loss, g_acc):
+        dx, dhead = ctx.saved_tensors
+        return ((dx * g_loss).to(dx.dtype), (dhead * g_loss).to(dhead.dtype),
+                None, None, None, None, None)
+
+
+def fused_chunked_ce_loss(x, head, targets, mask, z_loss, chunk, accuracy):
+    """Chunked LM-head CE whose gradient is computed in the forward loop.
+    x [N,D] (flattened final hidden), head [D,V], targets [N] int, mask
+    [N] f32. Returns (loss, acc). A call that needs no gradient (eval)
+    skips the gradient work."""
+    return _FusedChunkedCE.apply(x, head, targets, mask, z_loss, chunk,
+                                 accuracy)
+
+
+def lm_loss(params, batch, config: TransformerConfig, *, mesh=None,
+            z_loss: float = 0.0):
+    """Next-token LM loss. batch: {"tokens": [B,T]} (targets = shift) or
+    {"inputs","targets"[,"mask"]}."""
+    if "inputs" in batch:
+        inp, tgt = batch["inputs"], batch["targets"]
+        mask = batch.get("mask")
+    else:
+        toks = batch["tokens"]
+        inp, tgt = toks[:, :-1], toks[:, 1:]
+        mask = batch.get("mask")
+        if mask is not None:
+            mask = mask[:, 1:]
+    if config.loss_chunk <= 0:
+        logits = forward(params, inp, config, mesh=mesh)
+        return cross_entropy_loss(logits, tgt, mask=mask, z_loss=z_loss)
+    if config.ce_impl not in ("fused", "checkpoint"):
+        raise ValueError(
+            f"ce_impl must be 'fused' or 'checkpoint', got {config.ce_impl!r}")
+    x = forward(params, inp, config, mesh=mesh, return_hidden=True)
+    head = _head(params, config)
+    if config.ce_impl == "checkpoint":
+        return chunked_ce_loss(x, head, tgt, mask=mask, z_loss=z_loss,
+                               chunk=config.loss_chunk,
+                               accuracy=config.ce_accuracy)
+    B, T, D = x.shape
+    mf = (mask.reshape(-1).float() if mask is not None
+          else torch.ones((B * T,), dtype=torch.float32, device=x.device))
+    loss, acc = fused_chunked_ce_loss(
+        x.reshape(B * T, D), head, tgt.reshape(-1), mf, float(z_loss),
+        int(config.loss_chunk), bool(config.ce_accuracy))
+    return loss, {"loss": loss, "accuracy": acc, "perplexity": _perplexity(loss)}
+
+
+def _micro_weight(mb):
+    """Valid-TARGET-token count of a microbatch: lm_loss means over it,
+    so weighting by it reproduces the full-batch per-token mean."""
+    mask = mb.get("mask")
+    if mask is not None:
+        m = mask[:, 1:] if "tokens" in mb else mask
+        return m.float().sum()
+    toks = mb["tokens"] if "tokens" in mb else mb["targets"]
+    n_t = toks.shape[0] * (toks.shape[1] - (1 if "tokens" in mb else 0))
+    return torch.tensor(float(n_t), device=toks.device)
+
+
+def loss_and_grads(params, batch, config: TransformerConfig, *,
+                   z_loss: float = 0.0):
+    """(metrics, grads): lm_loss's metrics, detached, and the gradient of
+    its loss for every parameter leaf in ``tree_leaves`` order, by
+    torch.autograd.grad (a leaf the loss does not reach gets zeros, as
+    jax.grad gives)."""
+    leaves = list(tree_leaves(params))
+    live = [p.detach().requires_grad_() for p in leaves]
+    loss, metrics = lm_loss(tree_unflatten(params, live), batch, config,
+                            z_loss=z_loss)
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return {k: m.detach() for k, m in metrics.items()}, grads
+
+
+def make_train_step(config: TransformerConfig, optimizer, *, mesh=None,
+                    z_loss: float = 0.0, accum_steps: int = 1):
+    """Build the training step ``train_step(state, batch) -> (state,
+    metrics)``; state is {"params", "opt_state", "step"} (see
+    init_train_state) and metrics hold lm_loss's plus ``grad_norm``.
+
+    Gradients come from torch.autograd.grad over the parameter leaves.
+    ``accum_steps > 1`` splits every batch leaf's leading dim into
+    microbatches, accumulates their gradients in f32 weighted by each
+    microbatch's valid-token count (so masked batches match the
+    unaccumulated step's per-token weighting), weights every metric the
+    same way, and applies the optimizer once. The optimizer updates the
+    parameters in place (ray_tpu_torch.ops.optim.FusedClipAdamW).
+    """
+    _check_supported(config, mesh)
+    if not isinstance(optimizer, FusedClipAdamW):
+        raise NotImplementedError(
+            "the port's train step takes ray_tpu_torch.ops.optim.FusedClipAdamW; "
+            "the optax-style optimizer path (optimizer.update) is not ported "
+            "yet (ROADMAP.md §1 item 9)")
+
+    grads_of = functools.partial(loss_and_grads, config=config, z_loss=z_loss)
+
+    def accumulated(params, batch):
+        for key, x in batch.items():
+            if x.shape[0] % accum_steps:
+                raise ValueError(f"batch dim {x.shape[0]} of {key!r} not "
+                                 f"divisible by accum_steps {accum_steps}")
+        splits = {k: x.chunk(accum_steps) for k, x in batch.items()}
+        micro = [{k: x[i] for k, x in splits.items()} for i in range(accum_steps)]
+        gsum = [torch.zeros_like(p, dtype=torch.float32) for p in tree_leaves(params)]
+        msum, wsum = None, 0.0
+        for mb in micro:
+            metrics, grads = grads_of(params, mb)
+            w = _micro_weight(mb)
+            for a, g in zip(gsum, grads):
+                a.add_(w * g.float())
+            msum = ({k: w * m for k, m in metrics.items()} if msum is None
+                    else {k: msum[k] + w * m for k, m in metrics.items()})
+            wsum = wsum + w
+        inv = 1.0 / torch.clamp(wsum, min=1.0)
+        return ({k: m * inv for k, m in msum.items()},
+                [g * inv for g in gsum])
+
+    def train_step(state, batch):
+        params = state["params"]
+        device = next(tree_leaves(params)).device
+        batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        if accum_steps > 1:
+            metrics, grads = accumulated(params, batch)
+        else:
+            metrics, grads = grads_of(params, batch)
+        params, opt_state, gnorm = optimizer.apply(
+            tree_unflatten(params, grads), state["opt_state"], params)
+        metrics = dict(metrics, grad_norm=gnorm)
+        return {"params": params, "opt_state": opt_state,
+                "step": state["step"] + 1}, metrics
+
+    return train_step
+
+
+def init_train_state(rng: torch.Generator, config: TransformerConfig,
+                     optimizer, *, device="cuda"):
+    """{"params", "opt_state", "step"} on ``device`` (see init_params)."""
+    params = init_params(rng, config, device=device)
+    return {
+        "params": params,
+        "opt_state": optimizer.init(params),
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
 # -- decode (KV cache) ------------------------------------------------------
 
 def init_kv_cache(config: TransformerConfig, batch_size: int, max_len: int,
@@ -480,8 +804,7 @@ def decode_step(params, tokens, cache, config: TransformerConfig):
         rope = rope_frequencies(c.head_dim, c.max_seq_len,
                                 theta=c.rope_theta, device=x.device)
 
-    for i in range(c.n_layers):
-        lp = _layer_params(params["layers"], i)
+    for i, lp in enumerate(_unstack_layers(params["layers"])):
         kc, vc = cache["k"][i], cache["v"][i]
         if c.arch == "gpt2":
             h = layer_norm(x, lp["ln1"]["w"], lp["ln1"]["b"])

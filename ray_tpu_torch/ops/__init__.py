@@ -1,5 +1,6 @@
 """ray_tpu_torch.ops: attention (with the hand-written Hopper flash
-kernel) and the norm/rope/mlp building blocks.
+kernels, forward and backward) and the norm/rope/mlp building blocks;
+the fused clip+AdamW optimizer lives in ray_tpu_torch.ops.optim.
 
 Port of ray_tpu.ops; ring attention arrives with the parallel slice.
 """

@@ -10,7 +10,8 @@ import: the CPU tests import this module on machines with no CUDA.
 A launch wrapper checks device, dtype, shape and layout and raises on
 anything its kernel does not take; it allocates the outputs, launches on
 PyTorch's current stream, raises if the C function reports a CUDA error,
-and counts its launches in a plain int attribute (``flash_fwd.launches``).
+and counts its launches in a plain int attribute (``flash_fwd.launches``,
+``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
-SOURCES = ("flash_fwd.cu",)
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 
@@ -78,20 +79,79 @@ def build() -> dict[str, Path]:
         return libs
 
 
+_P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+# Each source's C entry points and their argtypes: pointers and the stream
+# as c_void_p, strides as long long, sizes and flags as int.
+_ENTRY_POINTS = {
+    "flash_fwd.cu": {
+        "ray_tpu_torch_flash_fwd": [_P] * 5 + [_I64] * 12 + [_I32] * 7 + [_F32, _P],
+    },
+    "flash_bwd.cu": {
+        "ray_tpu_torch_flash_bwd_dq": [_P] * 7 + [_I64] * 15 + [_I32] * 7 + [_F32, _P],
+        "ray_tpu_torch_flash_bwd_dkv": [_P] * 8 + [_I64] * 18 + [_I32] * 7 + [_F32, _P],
+    },
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _flash_lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()["flash_fwd.cu"]))
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.ray_tpu_torch_flash_fwd.argtypes = (
-        [p] * 5 + [i64] * 12 + [i32] * 7 + [ctypes.c_float, p])
-    lib.ray_tpu_torch_flash_fwd.restype = i32
-    lib.ray_tpu_torch_cuda_error_string.argtypes = [i32]
+def _lib(source: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()[source]))
+    for name, argtypes in _ENTRY_POINTS[source].items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I32
+    lib.ray_tpu_torch_cuda_error_string.argtypes = [_I32]
     lib.ray_tpu_torch_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _launch(source: str, name: str, tensor, *args) -> None:
+    """Call C entry point ``name`` of ``source`` on ``tensor``'s device
+    and current stream (appended as the last argument); raise on a CUDA
+    error."""
+    lib = _lib(source)
+    with torch.cuda.device(tensor.device):
+        stream = torch.cuda.current_stream(tensor.device).cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        msg = lib.ray_tpu_torch_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} (cudaError {rc})")
+
+
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 HEAD_DIMS = (64, 128)
+
+
+def _check_attention_inputs(name: str, q, k, v, *q_like):
+    """Checks shared by the attention kernels: q (and every ``q_like``,
+    e.g. dO) [B, Tq, H, D], k/v [B, Tk, H, D] CUDA tensors of one dtype
+    on one device, D in HEAD_DIMS, a contiguous head_dim axis, Tk > 0.
+    Returns (B, Tq, H, D, Tk)."""
+    tensors = (q, k, v, *q_like)
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError(f"{name} launches a CUDA kernel: its inputs must be CUDA tensors")
+    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in tensors):
+        raise ValueError(f"{name} takes one dtype of fp32/fp16/bf16, got "
+                         f"{[t.dtype for t in tensors]}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+    if any(t.shape != q.shape for t in q_like):
+        raise ValueError(f"{name}: {[tuple(t.shape) for t in q_like]} must match q "
+                         f"{tuple(q.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name} supports head_dim {HEAD_DIMS}, got {d}")
+    if any(t.stride(3) != 1 for t in tensors):
+        raise ValueError(f"{name} needs a contiguous head_dim axis")
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"{name}: inputs must be on one device")
+    if tk == 0:
+        raise ValueError(f"{name} needs at least one key")
+    return b, tq, h, d, tk
 
 
 def flash_fwd(q, k, v, *, causal: bool, return_lse: bool):
@@ -102,45 +162,82 @@ def flash_fwd(q, k, v, *, causal: bool, return_lse: bool):
     axis. Returns (O [B, Tq, H, D] in q's dtype, LSE [B*H, Tq, 1] f32 or
     None).
     """
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_fwd launches a CUDA kernel: q, k, v must be CUDA tensors")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_fwd takes one dtype of fp32/fp16/bf16, got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)}")
-    b, tq, h, d = q.shape
-    tk = k.shape[1]
-    if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
-        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_fwd supports head_dim {HEAD_DIMS}, got {d}")
-    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
-        raise ValueError("flash_fwd needs a contiguous head_dim axis")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k, v must be on one device")
-    if tk == 0:
-        raise ValueError("flash_fwd needs at least one key")
+    b, tq, h, d, tk = _check_attention_inputs("flash_fwd", q, k, v)
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b * h, tq, 1), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if o.numel() == 0:
         return o, lse
-    lib = _flash_lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.ray_tpu_torch_flash_fwd(
+    _launch("flash_fwd.cu", "ray_tpu_torch_flash_fwd", q,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if lse is not None else None,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             b, h, tq, tk, d, _DTYPE_CODES[q.dtype], int(causal),
-            1.0 / math.sqrt(d), stream)
-    if rc != 0:
-        msg = lib.ray_tpu_torch_cuda_error_string(rc).decode()
-        raise RuntimeError(f"flash_fwd launch failed: {msg} (cudaError {rc})")
+            1.0 / math.sqrt(d))
     flash_fwd.launches += 1
     return o, lse
 
 
 flash_fwd.launches = 0
+
+
+def _check_row_stats(name: str, b: int, h: int, tq: int, **stats):
+    """LSE and delta: contiguous f32 CUDA tensors of B*H*Tq values, laid
+    out [B*H, Tq] (a trailing axis of 1 is allowed)."""
+    for key, t in stats.items():
+        if (not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.numel() != b * h * tq or t.shape[:2] != (b * h, tq)):
+            raise ValueError(f"{name}: {key} must be a contiguous f32 CUDA tensor "
+                             f"[B*H, Tq(, 1)] = [{b * h}, {tq}], got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool):
+    """Flash-attention backward, dQ pass, on the card (csrc/flash_bwd.cu).
+
+    q/dO [B, Tq, H, D], k/v [B, Tk, H, D] as ``flash_fwd`` takes them;
+    ``lse`` the forward's [B*H, Tq, 1] f32 and ``delta`` = rowsum(dO * O)
+    [B*H, Tq(, 1)] f32, both contiguous. Returns dQ [B, Tq, H, D] in q's
+    dtype.
+    """
+    b, tq, h, d, tk = _check_attention_inputs("flash_bwd_dq", q, k, v, do)
+    _check_row_stats("flash_bwd_dq", b, h, tq, lse=lse, delta=delta)
+    dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    _launch("flash_bwd.cu", "ray_tpu_torch_flash_bwd_dq", q,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+            *dq.stride()[:3],
+            b, h, tq, tk, d, _DTYPE_CODES[q.dtype], int(causal),
+            1.0 / math.sqrt(d))
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool):
+    """Flash-attention backward, dK/dV pass, on the card
+    (csrc/flash_bwd.cu). Inputs as ``flash_bwd_dq``. Returns (dK, dV)
+    [B, Tk, H, D] in k's and v's dtype."""
+    b, tq, h, d, tk = _check_attention_inputs("flash_bwd_dkv", q, k, v, do)
+    _check_row_stats("flash_bwd_dkv", b, h, tq, lse=lse, delta=delta)
+    dk = torch.empty((b, tk, h, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, tk, h, d), dtype=v.dtype, device=v.device)
+    if dk.numel() == 0:
+        return dk, dv
+    _launch("flash_bwd.cu", "ray_tpu_torch_flash_bwd_dkv", q,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+            *dk.stride()[:3], *dv.stride()[:3],
+            b, h, tq, tk, d, _DTYPE_CODES[q.dtype], int(causal),
+            1.0 / math.sqrt(d))
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0

@@ -7,10 +7,11 @@ Three tiers:
     tests and the path for short sequences.
   - ``blockwise_attention`` — online softmax over key blocks in a Python
     loop: O(T) memory for the scores, differentiable.
-  - ``flash_attention`` — the hand-written Hopper kernel
-    (csrc/flash_fwd.cu) on a CUDA tensor, its plain PyTorch version
-    (``flash_forward_plain``) on a CPU tensor. Forward only for now: the
-    backward kernels arrive with the training path.
+  - ``flash_attention`` — the hand-written Hopper kernels on a CUDA
+    tensor (forward csrc/flash_fwd.cu; backward csrc/flash_bwd.cu, a dQ
+    pass and a dK/dV pass, bound to it by a torch.autograd.Function),
+    their plain PyTorch versions (``flash_forward_plain``,
+    ``flash_backward_plain``) on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -182,19 +183,110 @@ def _flash_forward(q, k, v, *, causal, block_q, block_k,
     return (out, lse) if return_lse else out
 
 
+def flash_backward_plain(q, k, v, o, lse, do, *, causal: bool,
+                         block_q: int, block_k: int):
+    """Plain PyTorch version of the flash backward kernels: the same
+    function with the same numerics as ray_tpu's _flash_backward, in
+    (``block_q``, ``block_k``) tiles, skipping the tiles those kernels
+    skip (causal: wholly above the diagonal) —
+    delta = rowsum(dO·O) in f32; s = q·kᵀ in f32, then ``* scale``; the
+    -1e30 mask with p = exp(s − lse) set to 0 where masked; dP = dO·vᵀ in
+    f32; dS = p∘(dP − delta)·scale; dQ = Σ dS (rounded to k's dtype)·k;
+    dV = Σ pᵀ·dO and dK = Σ dSᵀ·q, both from the unrounded f32 p and dS.
+
+    q/o/do [B,Tq,H,D], k/v [B,Tk,H,D], lse [B*H, Tq, 1] f32 (the
+    forward's). Returns (dQ, dK, dV) in q's, k's and v's dtypes.
+    """
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    heads = lambda x: x.permute(0, 2, 1, 3).float()  # noqa: E731  [B,H,T,D]
+    qf, kf, vf, gf = heads(q), heads(k), heads(v), heads(do)
+    delta = (gf * heads(o)).sum(-1, keepdim=True)  # [B,H,Tq,1]
+    lse = lse.reshape(b, h, tq, 1)
+    dq = torch.zeros((b, h, tq, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, h, tk, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((b, h, tk, d), dtype=torch.float32, device=q.device)
+    for q0 in range(0, tq, block_q):
+        qs = slice(q0, q0 + block_q)
+        for k0 in range(0, tk, block_k):
+            if causal and k0 > q0 + block_q - 1:
+                break  # this key block and every later one lie above the diagonal
+            ks = slice(k0, k0 + block_k)
+            s = (qf[:, :, qs] @ kf[:, :, ks].transpose(-1, -2)) * scale
+            mask = None
+            if causal:
+                mask = _causal_mask(torch.arange(q0, min(q0 + block_q, tq), device=q.device),
+                                    torch.arange(k0, min(k0 + block_k, tk), device=q.device))
+                s = torch.where(mask, s, _NEG_INF)
+            p = torch.exp(s - lse[:, :, qs])
+            if mask is not None:
+                p = torch.where(mask, p, 0.0)
+            dp = gf[:, :, qs] @ vf[:, :, ks].transpose(-1, -2)
+            ds = p * (dp - delta[:, :, qs]) * scale
+            dq[:, :, qs] += ds.to(k.dtype).float() @ kf[:, :, ks]
+            dv[:, :, ks] += p.transpose(-1, -2) @ gf[:, :, qs]
+            dk[:, :, ks] += ds.transpose(-1, -2) @ qf[:, :, qs]
+    back = lambda x, dt: x.to(dt).permute(0, 2, 1, 3)  # noqa: E731
+    return back(dq, q.dtype), back(dk, k.dtype), back(dv, v.dtype)
+
+
+def _flash_backward(q, k, v, o, lse, do, *, causal, block_q, block_k):
+    """The backward kernels on a CUDA tensor, their plain version on a CPU
+    tensor; the counterpart of ``_flash_forward``, with the same
+    divisibility contract. Returns (dQ, dK, dV).
+
+    On the card delta = rowsum(dO·O) is one PyTorch reduction here, outside
+    the kernels, as the reference computes it outside its kernels (one XLA
+    fusion). Both kernels read it and the forward's LSE.
+    """
+    tq, tk = q.shape[1], k.shape[1]
+    block_q = min(block_q, tq)
+    block_k = min(block_k, tk)
+    if tq % block_q or tk % block_k:
+        raise ValueError(f"seq lens ({tq},{tk}) must divide blocks ({block_q},{block_k})")
+    if q.device.type == "cpu":
+        return flash_backward_plain(q, k, v, o, lse, do, causal=causal,
+                                    block_q=block_q, block_k=block_k)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(lse.shape).contiguous()
+    dq = _kernels.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = _kernels.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel with the backward kernels as its gradient; the
+    residuals are q, k, v, O and the forward's LSE (ray_tpu's
+    _flash_fwd_rule / _flash_bwd_rule)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_k):
+        o, lse = _flash_forward(q, k, v, causal=causal, block_q=block_q,
+                                block_k=block_k, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.blocks = (causal, block_q, block_k)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, block_q, block_k = ctx.blocks
+        if do.stride(-1) != 1:
+            do = do.contiguous()  # the kernels read rows with a unit stride
+        dq, dk, dv = _flash_backward(q, k, v, o, lse, do, causal=causal,
+                                     block_q=block_q, block_k=block_k)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, causal: bool = True, block_q: int = 256,
                     block_k: int = 256):
-    """Flash attention forward: the Hopper kernel on a CUDA tensor, the
-    plain version on a CPU tensor.
-
-    Forward only on the card for now: a CUDA call that would need a
-    gradient raises (the backward kernels come with the training path).
-    """
-    if (q.is_cuda and torch.is_grad_enabled()
-            and (q.requires_grad or k.requires_grad or v.requires_grad)):
-        raise NotImplementedError(
-            "flash_attention on CUDA is forward-only: its backward kernels "
-            "are not ported yet (ROADMAP.md §2 rows 2-3, with §1 item 1)")
+    """Flash attention: the Hopper kernels on a CUDA tensor, their plain
+    versions on a CPU tensor. Differentiable: when a gradient is needed
+    the forward keeps its LSE and the backward runs the dQ and dK/dV
+    passes; otherwise only the forward runs."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, block_q, block_k)
     return _flash_forward(q, k, v, causal=causal, block_q=block_q,
                           block_k=block_k)
 

@@ -1,14 +1,15 @@
 """The PyTorch port's ops (ray_tpu_torch.ops) against the JAX package's,
 on the CPU, from the same numpy inputs.
 
-JAX's flash_attention runs its Pallas kernel in interpret mode here, as
-the JAX suite runs it (test_ops_parallel.py); the port's flash_attention
-runs its plain PyTorch version (the CUDA kernel is held against that
-version on the card by chip_smoke.py).
+JAX's flash_attention runs its Pallas kernels (forward, dq, dk/dv) in
+interpret mode here, as the JAX suite runs them (test_ops_parallel.py);
+the port's flash_attention runs its plain PyTorch versions (the CUDA
+kernels are held against those versions on the card by chip_smoke.py).
 """
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -185,3 +186,92 @@ def test_flash_plain_skips_blocks_above_diagonal_exactly():
     ref = TA.dot_product_attention(q, k, v, causal=True)
     np.testing.assert_allclose(_np(o), _np(ref), atol=2e-5, rtol=2e-5)
     assert lse.shape == (2 * 4, 32, 1)
+
+
+# -- flash backward: f32, 2e-4 (the JAX suite's backward tolerance) ---------
+
+@pytest.mark.parametrize("causal,t,tk", [(True, 64, 64), (False, 64, 64),
+                                         (True, 32, 64)])
+def test_flash_backward_plain_matches_jax_kernels(causal, t, tk):
+    """The plain backward against the Pallas dq and dk/dv kernels in
+    interpret mode, from the same q, k, v, dO and the JAX forward's O and
+    LSE, in 32-row blocks; t=32 < tk=64 leaves a causal key block that no
+    query attends to (its dK/dV are zero)."""
+    q, k, v = _qkv(b=1, t=t, tk=tk, h=2, d=16)
+    do = _rand(1, t, 2, 16, seed=9)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    o, lse = JA._flash_forward(jq, jk, jv, causal=causal, block_q=32,
+                               block_k=32, interpret=True, return_lse=True)
+    ref = JA._flash_backward(jq, jk, jv, o, lse, jdo, causal=causal,
+                             block_q=32, block_k=32, interpret=True)
+    got = TA.flash_backward_plain(
+        *(torch.from_numpy(np.array(a)) for a in (q, k, v, o, lse, do)),
+        causal=causal, block_q=32, block_k=32)
+    for name, r, g in zip(("dq", "dk", "dv"), ref, got):
+        assert tuple(g.shape) == r.shape
+        np.testing.assert_allclose(_np(g), _np(r), atol=2e-4, rtol=2e-4, err_msg=name)
+    if causal and tk > t:
+        assert not got[1][:, t:].any() and not got[2][:, t:].any()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_gradients_match_jax(causal):
+    """Gradients of flash_attention through autograd against jax.grad of
+    the JAX flash_attention (Pallas backward in interpret mode), with a
+    non-trivial cotangent across several q/k blocks
+    (test_ops_parallel.py::test_flash_backward_kernels_multiblock)."""
+    q, k, v = _qkv(b=2, t=128, h=2, d=32)
+    w = np.random.RandomState(7).randn(32).astype(np.float32)
+
+    def jloss(q, k, v):
+        out = JA.flash_attention(q, k, v, causal, 32, 64)
+        return (jnp.tanh(out @ w) * jnp.cos(out.sum(-1))).sum()
+
+    ref = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = TA.flash_attention(tq, tk, tv, causal, 32, 64)
+    loss = (torch.tanh(out @ torch.from_numpy(w)) * torch.cos(out.sum(-1))).sum()
+    got = torch.autograd.grad(loss, (tq, tk, tv))
+    for name, r, g in zip(("dq", "dk", "dv"), ref, got):
+        np.testing.assert_allclose(_np(g), _np(r), atol=2e-4, rtol=2e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("impl", ["flash", "flash_jax"])
+def test_flash_gradient_through_fused_qkv_views(impl):
+    """q, k, v as strided views of one fused projection (as the model
+    makes them) and an incoming gradient whose last axis is not
+    contiguous: the gradient of the projection matches plain attention's."""
+    qkv = torch.from_numpy(_rand(2, 64, 4, 48)).requires_grad_()
+    g = torch.from_numpy(_rand(2, 64, 16, 4, seed=3)).transpose(-1, -2)
+    assert g.stride(-1) != 1
+    grads = []
+    for which in (impl, "reference"):
+        q, k, v = qkv.split(16, dim=-1)
+        out = TA.attention(q, k, v, causal=True, impl=which, block_q=32, block_k=32)
+        grads.append(torch.autograd.grad(out, qkv, g)[0])
+    np.testing.assert_allclose(_np(grads[0]), _np(grads[1]), atol=2e-5, rtol=2e-5)
+
+
+def test_flash_backward_rejects_non_dividing_shapes():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(t=64))
+    o, lse = TA.flash_forward_plain(q, k, v, causal=True, block_k=64)
+    with pytest.raises(ValueError, match="must divide blocks"):
+        TA._flash_backward(q, k, v, o, lse, o, causal=True, block_q=48, block_k=64)
+
+
+def test_flash_backward_kernel_wrappers_never_run_on_cpu():
+    """The backward wrappers raise for CPU tensors instead of computing."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(t=64, d=64))
+    lse = torch.zeros((2 * 4, 64, 1))
+    for fn in (_kernels.flash_bwd_dq, _kernels.flash_bwd_dkv):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(q, k, v, q, lse, lse, causal=True)
+
+
+def test_flash_forward_without_grad_keeps_no_graph():
+    """Inference takes the forward alone: no autograd node is built."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(t=64))
+    assert TA.flash_attention(q, k, v, True, 32, 32).grad_fn is None
+    with torch.no_grad():
+        out = TA.flash_attention(q.requires_grad_(), k, v, True, 32, 32)
+    assert out.grad_fn is None

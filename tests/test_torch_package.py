@@ -13,6 +13,7 @@ import torch
 from ray_tpu_torch import interop, models
 from ray_tpu_torch.llm import LLMConfig, LLMEngine, model_runner
 from ray_tpu_torch.ops import layers
+from ray_tpu_torch.ops.optim import FusedClipAdamW
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -43,6 +44,8 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu():
 ENTRY_POINTS = {
     "init_params": lambda: models.init_params(torch.Generator(), models.tiny()),
     "init_kv_cache": lambda: models.init_kv_cache(models.tiny(), 1, 8),
+    "init_train_state": lambda: models.init_train_state(
+        torch.Generator(), models.tiny(), FusedClipAdamW()),
     "init_slot_cache": lambda: model_runner.init_slot_cache(models.tiny(), 1, 8),
     "rope_frequencies": lambda: layers.rope_frequencies(8, 4),
     "params_from_jax": lambda: interop.params_from_jax({"w": np.zeros(2)}),

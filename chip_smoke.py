@@ -8,8 +8,10 @@ Phases, in order; any failed check exits non-zero:
   2. kernels — each kernel against its plain PyTorch version on the card,
                at the shapes the main path gives it; times of the kernel,
                the plain version and the library call that computes the
-               same function; the bound for the same work on this card.
-               The flash forward, then the backward pair (dQ, dK/dV).
+               same function; the bound for the same work on this card
+               and the kernel's share of it (bound / time). The flash
+               forward (at the forward's and the train step's shapes),
+               then the backward pair (dQ, dK/dV).
   3. forward — the main path, part 1: GPT-2 124M (full width, random
                weights from a seed) forward at B=4, T=1024 with
                attn_impl="flash", held against attn_impl="reference";
@@ -26,7 +28,9 @@ Phases, in order; any failed check exits non-zero:
                step; step time, tokens/s and one profiled step.
 
 Kernel launch counts are set to 0 just before phase 3 and read just
-after phase 5; launches made in phase 2 do not count.
+after phase 5; launches made in phase 2 do not count. Over the same
+phases the wrappers must copy no input (the model's q, k, v are views
+that TMA reads in place).
 
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
@@ -162,6 +166,7 @@ def phase_kernels(card: str):
     cases = [(4, 1024, 12, 64, dt, causal)
              for causal in (True, False)
              for dt in (torch.bfloat16, torch.float16, torch.float32)]
+    cases.append((8, 1024, 12, 64, torch.bfloat16, True))  # the train step's
     cases.append((1, 2048, 32, 128, torch.bfloat16, True))
     # Ragged edges (T not a multiple of the kernel's 64-row tiles) and the
     # remaining type/head_dim instantiations, at small shapes.
@@ -192,7 +197,8 @@ def phase_kernels(card: str):
         bound_ms, bound_by = _attention_bound_ms(b, t, h, d, dt, causal, card)
         row = {"shape": [b, t, h, d], "dtype": str(dt).split(".")[-1],
                "causal": causal, "max_abs_err": err_o,
-               "max_abs_err_lse": err_lse, "ms": ms, "plain_ms": plain_ms,
+               "max_abs_err_lse": err_lse, "ms": ms,
+               "bound_share": bound_ms / ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by}
         print("[kernels] flash_fwd " + json.dumps(row))
@@ -324,6 +330,7 @@ def phase_kernels_bwd(card: str):
         for name, is_dq in (("dq", True), ("dkv", False)):
             row[f"bound_ms_{name}"], row[f"bound_by_{name}"] = _attention_bwd_bound_ms(
                 b, tq, tk, h, d, dt, causal, card, dq=is_dq)
+            row[f"bound_share_{name}"] = row[f"bound_ms_{name}"] / row[f"ms_{name}"]
         print("[kernels] flash_bwd " + json.dumps(row))
         for name, e in errs.items():
             _check(_grad_within(e, dt),
@@ -348,8 +355,8 @@ def _sync_ms(fn, *, iters: int = 5) -> float:
 
 def _profile(fn, top: int = 6) -> dict:
     """One call of ``fn`` under torch.profiler: wall time, the device
-    time its kernels took (sum of self device times), and the kernels
-    that took the most."""
+    time its kernels took (sum of self device times), the kernels that
+    took the most, and this repo's flash kernels whatever their rank."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -370,7 +377,9 @@ def _profile(fn, top: int = 6) -> dict:
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / wall_ms,
             "top": [{"name": n[:80], "ms": ms, "calls": cnt}
-                    for n, ms, cnt in rows[:top]]}
+                    for n, ms, cnt in rows[:top]],
+            "flash": [{"name": n[:80], "ms": ms, "calls": cnt}
+                      for n, ms, cnt in rows if "flash_" in n]}
 
 
 def phase_forward():
@@ -598,15 +607,21 @@ def main() -> int:
     from ray_tpu_torch.ops._kernels import flash_bwd_dkv, flash_bwd_dq, flash_fwd
 
     kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    copying = (flash_fwd, flash_bwd_dq)  # the wrappers of the TMA kernels
     for k in kernels:
         k.launches = 0
+    for k in copying:
+        k.copies = 0
     with torch.inference_mode():
         phase_forward()
         phase_serve()
     phase_train()
     for k in kernels:
         _check(k.launches > 0, f"the main path never launched {k.__name__}")
-    source = {"flash_fwd": "flash_fwd.cu", "flash_bwd_dq": "flash_bwd.cu",
+    for k in copying:
+        _check(k.copies == 0, f"{k.__name__} copied {k.copies} inputs on the main path")
+    # The main path runs bf16: its dQ launches are flash_bwd_dq.cu's.
+    source = {"flash_fwd": "flash_fwd.cu", "flash_bwd_dq": "flash_bwd_dq.cu",
               "flash_bwd_dkv": "flash_bwd.cu"}
     replaces = {"flash_fwd": 144, "flash_bwd_dq": 298, "flash_bwd_dkv": 332}
     # Per kernel: (max abs error, ms, bound ms, bound by). The backward

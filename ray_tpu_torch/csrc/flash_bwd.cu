@@ -1,8 +1,8 @@
-// Flash-attention backward for Hopper (sm_90a): the dQ pass and the dK/dV
-// pass.
+// Flash-attention backward for Hopper (sm_90a): the dK/dV pass in every
+// type and the fp32 dQ pass. The bf16/fp16 dQ pass is flash_bwd_dq.cu.
 //
-// Counterparts of ray_tpu/ops/attention.py:_flash_bwd_dq_kernel and
-// _flash_bwd_dkv_kernel (the Pallas TPU kernels launched by
+// Counterparts of ray_tpu/ops/attention.py:_flash_bwd_dkv_kernel and
+// _flash_bwd_dq_kernel (the Pallas TPU kernels launched by
 // _flash_backward; shared math _bwd_block). Same function: with the
 // forward's row log-sum-exp LSE and delta = rowsum(dO * O), for every
 // attended (query, key) pair
@@ -17,26 +17,26 @@
 //
 // Rounding against the reference. bf16/fp16 products run on the tensor
 // cores, which take 16-bit operands: where the TPU kernel forms dV and dK
-// from an unrounded f32 p and dS, these kernels round p and dS to the
-// input type first (the dQ product rounds dS in both). fp32 inputs keep
-// full fp32 math on the FMA units, since a TF32 product would not match
-// the reference.
+// from an unrounded f32 p and dS, the dK/dV kernel rounds p and dS to the
+// input type first. fp32 inputs keep full fp32 math on the FMA units,
+// since a TF32 product would not match the reference.
 //
 // What bounds it on this card. Per attended (q, k) pair and (batch, head)
-// the dQ pass does 3 products of length D (S, dP, dQ: 6*D operations) and
-// the dK/dV pass 4 (S, dP, dV, dK: 8*D), against q, k, v, dO read once
-// and one or two outputs written. At GPT-2 124M's training shape (B=8,
-// T=1024, H=12, D=64, bf16, causal) the dQ pass must move ~64 MB (19 us at
-// 3.35 TB/s) and do ~19 GFLOP (20 us at 989 TFLOP/s), the dK/dV pass ~76
-// MB (23 us) and ~26 GFLOP (26 us): the tensor cores bound both, with the
-// bytes close behind. The design keeps the O(T^2) p and dS out of device memory
-// (each tile lives in shared memory only), reads q/k/v/dO in their public
-// [B, T, H, D] layout through strides, and skips the tiles the causal
-// mask empties. It keeps the TPU kernels' two-pass split, so no atomics:
-// gradients come out the same from run to run. This first version is
-// simple rather than fast: scalar tile loads with no copy/compute
-// overlap, and S and dP go through shared memory for the elementwise
-// step. TMA, wgmma and warp specialisation are later work.
+// the dK/dV pass does 4 products of length D (S, dP, dV, dK: 8*D
+// operations) against q, k, v, dO read once and dK, dV written once. At
+// GPT-2 124M's training shape (B=8, T=1024, H=12, D=64, bf16, causal) it
+// must move ~76 MB (23 us at 3.35 TB/s) and do ~26 GFLOP (26 us at 989
+// TFLOP/s): the tensor cores bound it, with the bytes close behind.
+//
+// The dK/dV kernel still has the first port's design, which
+// flash_bwd_dq.cu replaced for the dQ pass: WMMA (mma.sync) fragments
+// reloaded from shared memory for every product, scalar synchronous tile
+// loads with no copy/compute overlap, and S and dP staged through shared
+// memory for the elementwise step. It keeps the O(T^2) p and dS out of
+// device memory, reads q/k/v/dO in their public [B, T, H, D] layout
+// through strides, skips the tiles the causal mask empties, and keeps the
+// TPU kernels' two-pass split, so no atomics: gradients come out the same
+// from run to run.
 //
 // Blocking. The TPU grids carried the dQ accumulator across a sequential
 // key axis and the dK/dV accumulators across a sequential query axis, in
@@ -268,11 +268,12 @@ __device__ __forceinline__ void load_stats(float* lse_s, float* dl_s, const Args
   }
 }
 
-// dQ pass: one block per (batch*head, 64-row query tile), looping over the
-// key tiles at or below the diagonal.
-template <typename T, int D, bool kTensorCores>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
-  using L = Layout<T, D, kTensorCores>;
+// dQ pass, fp32: one block per (batch*head, 64-row query tile), looping
+// over the key tiles at or below the diagonal, on the FMA units.
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_fp32_kernel(const Args a) {
+  using T = float;
+  using L = Layout<T, D, false>;
   constexpr int kLd = L::kLdX;
   extern __shared__ __align__(128) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem + L::kQ);
@@ -301,20 +302,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
   load_stats(lse_s, dl_s, a, bh, m0);
 
   float* ss = reinterpret_cast<float*>(smem + L::kS) + row0 * kLdS;
-  float* sdp = reinterpret_cast<float*>(smem + L::kDP) + row0 * kLdS;
-  T* dst = reinterpret_cast<T*>(ss);  // dS in T, over S (tensor-core path)
 
-  Acc fq[kTensorCores ? D / 16 : 1];
-  float acc[kRowsPerWarp][kTensorCores ? 1 : D / 32];
-  if constexpr (kTensorCores) {
+  float acc[kRowsPerWarp][D / 32];
 #pragma unroll
-    for (int jn = 0; jn < D / 16; ++jn) wmma::fill_fragment(fq[jn], 0.f);
-  } else {
+  for (int r = 0; r < kRowsPerWarp; ++r)
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-      for (int c = 0; c < D / 32; ++c) acc[r][c] = 0.f;
-  }
+    for (int c = 0; c < D / 32; ++c) acc[r][c] = 0.f;
 
   const int n_end = a.causal ? min(a.tk, m0 + kTile) : a.tk;
   for (int n0 = 0; n0 < n_end; n0 += kTile) {
@@ -323,57 +316,26 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
     load_tile<T, D, kLd>(vs, vg, a.v_st, n0, a.tk);
     __syncthreads();
 
-    if constexpr (kTensorCores) {
-      product_nt_tc<T, D, kLd>(qs + row0 * kLd, ks, ss);    // S
-      product_nt_tc<T, D, kLd>(dos + row0 * kLd, vs, sdp);  // dP
-      __syncwarp();
-      // Row r of dS (in T) overlaps only rows <= r of S, read just before.
-#pragma unroll 1
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const int lr = row0 + r, qi = m0 + lr;
-        float sv[2], dpv[2];
+    float s[kRowsPerWarp][2], dp[kRowsPerWarp][2];
+    product_nt_fma<T, D, kLd>(qs + row0 * kLd, ks, lane, s);
+    product_nt_fma<T, D, kLd>(dos + row0 * kLd, vs, lane, dp);
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          sv[j] = ss[r * kLdS + lane + 32 * j];
-          dpv[j] = sdp[r * kLdS + lane + 32 * j];
-        }
-        __syncwarp();
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int lr = row0 + r, qi = m0 + lr;
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int kj = n0 + lane + 32 * j;
-          const bool ok = kj < a.tk && (!a.causal || qi >= kj);
-          const float p = ok ? expf(sv[j] * a.scale - lse_s[lr]) : 0.f;
-          dst[r * L::kLdP + lane + 32 * j] = Num<T>::from_f(p * (dpv[j] - dl_s[lr]) * a.scale);
-        }
+      for (int j = 0; j < 2; ++j) {
+        const int kj = n0 + lane + 32 * j;
+        const bool ok = kj < a.tk && (!a.causal || qi >= kj);
+        const float p = ok ? expf(s[r][j] * a.scale - lse_s[lr]) : 0.f;
+        ss[r * kLdS + lane + 32 * j] = p * (dp[r][j] - dl_s[lr]) * a.scale;
       }
-      __syncwarp();
-      product_nn_tc<T, D, kLd, L::kLdP>(dst, ks, fq);  // dQ += dS . K
-    } else {
-      float s[kRowsPerWarp][2], dp[kRowsPerWarp][2];
-      product_nt_fma<T, D, kLd>(qs + row0 * kLd, ks, lane, s);
-      product_nt_fma<T, D, kLd>(dos + row0 * kLd, vs, lane, dp);
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const int lr = row0 + r, qi = m0 + lr;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int kj = n0 + lane + 32 * j;
-          const bool ok = kj < a.tk && (!a.causal || qi >= kj);
-          const float p = ok ? expf(s[r][j] * a.scale - lse_s[lr]) : 0.f;
-          ss[r * kLdS + lane + 32 * j] = p * (dp[r][j] - dl_s[lr]) * a.scale;
-        }
-      }
-      __syncwarp();
-      product_nn_fma<T, D, kLd>(ss, ks, lane, acc);
     }
+    __syncwarp();
+    product_nn_fma<T, D, kLd>(ss, ks, lane, acc);
   }
 
   T* dqg = static_cast<T*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
-  if constexpr (kTensorCores) {
-    store_rows_tc<T, D>(fq, ss, dqg, a.dq_st, m0 + row0, a.tq, lane);
-  } else {
-    store_rows_fma<T, D>(acc, dqg, a.dq_st, m0 + row0, a.tq, lane);
-  }
+  store_rows_fma<T, D>(acc, dqg, a.dq_st, m0 + row0, a.tq, lane);
 }
 
 // dK/dV pass: one block per (batch*head, 64-key tile), looping over the
@@ -500,11 +462,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Args a) {
   }
 }
 
-template <typename T, int D, bool kTensorCores, bool kDq>
-cudaError_t launch(const Args& a, unsigned int n_blocks, cudaStream_t stream) {
-  constexpr size_t smem = Layout<T, D, kTensorCores>::kBytes;
-  auto kernel = kDq ? flash_bwd_dq_kernel<T, D, kTensorCores>
-                    : flash_bwd_dkv_kernel<T, D, kTensorCores>;
+template <int D>
+cudaError_t launch_dq_fp32(const Args& a, unsigned int n_blocks, cudaStream_t stream) {
+  constexpr size_t smem = Layout<float, D, false>::kBytes;
+  auto kernel = flash_bwd_dq_fp32_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -512,34 +473,41 @@ cudaError_t launch(const Args& a, unsigned int n_blocks, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, bool kTensorCores, bool kDq>
-cudaError_t launch_d(const Args& a, int head_dim, unsigned int n_blocks, cudaStream_t stream) {
-  if (head_dim == 64) return launch<T, 64, kTensorCores, kDq>(a, n_blocks, stream);
-  if (head_dim == 128) return launch<T, 128, kTensorCores, kDq>(a, n_blocks, stream);
+template <typename T, int D, bool kTensorCores>
+cudaError_t launch_dkv(const Args& a, unsigned int n_blocks, cudaStream_t stream) {
+  constexpr size_t smem = Layout<T, D, kTensorCores>::kBytes;
+  auto kernel = flash_bwd_dkv_kernel<T, D, kTensorCores>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<n_blocks, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kTensorCores>
+cudaError_t launch_dkv_d(const Args& a, int head_dim, unsigned int n_blocks,
+                         cudaStream_t stream) {
+  if (head_dim == 64) return launch_dkv<T, 64, kTensorCores>(a, n_blocks, stream);
+  if (head_dim == 128) return launch_dkv<T, 128, kTensorCores>(a, n_blocks, stream);
   return cudaErrorInvalidValue;
 }
 
-template <bool kDq>
-int dispatch(Args& a, int batch, int tile_rows, int head_dim, int dtype, void* stream) {
+// Sets the tile count from the rows the blocks tile (Tq for dQ, Tk for
+// dK/dV); returns the block count, or 0 if it does not fit a launch.
+unsigned int tile_blocks(Args& a, int batch, int tile_rows) {
   a.n_tiles = (tile_rows + kTile - 1) / kTile;
   const long long n_blocks = static_cast<long long>(a.n_tiles) * batch * a.heads;
-  if (n_blocks <= 0 || n_blocks > INT_MAX) return cudaErrorInvalidValue;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto nb = static_cast<unsigned int>(n_blocks);
-  switch (dtype) {
-    case 0: return launch_d<float, false, kDq>(a, head_dim, nb, s);
-    case 1: return launch_d<__half, true, kDq>(a, head_dim, nb, s);
-    case 2: return launch_d<__nv_bfloat16, true, kDq>(a, head_dim, nb, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return n_blocks <= 0 || n_blocks > INT_MAX ? 0u : static_cast<unsigned int>(n_blocks);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 float16, 2 bfloat16. Strides are in elements; the
-// head_dim axis of every tensor must be contiguous; lse and delta are
-// contiguous [B*H, Tq] f32. Each returns a cudaError_t (0 on success).
-extern "C" int ray_tpu_torch_flash_bwd_dq(
+// Strides are in elements; the head_dim axis of every tensor must be
+// contiguous; lse and delta are contiguous [B*H, Tq] f32. Each returns a
+// cudaError_t (0 on success).
+
+// The dQ pass for float32 inputs.
+extern "C" int ray_tpu_torch_flash_bwd_dq_fp32(
     const void* q, const void* k, const void* v, const void* dout, const float* lse,
     const float* delta, void* dq,
     long long q_sb, long long q_st, long long q_sh,
@@ -547,16 +515,22 @@ extern "C" int ray_tpu_torch_flash_bwd_dq(
     long long v_sb, long long v_st, long long v_sh,
     long long do_sb, long long do_st, long long do_sh,
     long long dq_sb, long long dq_st, long long dq_sh,
-    int batch, int heads, int tq, int tk, int head_dim, int dtype, int causal,
+    int batch, int heads, int tq, int tk, int head_dim, int causal,
     float scale, void* stream) {
   if (tk <= 0) return cudaErrorInvalidValue;
   Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr,
          q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, do_sb, do_st, do_sh,
          dq_sb, dq_st, dq_sh, 0, 0, 0, 0, 0, 0,
          heads, tq, tk, 0, causal, scale};
-  return dispatch<true>(a, batch, tq, head_dim, dtype, stream);
+  const unsigned int nb = tile_blocks(a, batch, tq);
+  if (nb == 0) return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64) return launch_dq_fp32<64>(a, nb, s);
+  if (head_dim == 128) return launch_dq_fp32<128>(a, nb, s);
+  return cudaErrorInvalidValue;
 }
 
+// The dK/dV pass; dtype: 0 float32, 1 float16, 2 bfloat16.
 extern "C" int ray_tpu_torch_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout, const float* lse,
     const float* delta, void* dk, void* dv,
@@ -573,7 +547,15 @@ extern "C" int ray_tpu_torch_flash_bwd_dkv(
          q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, do_sb, do_st, do_sh,
          0, 0, 0, dk_sb, dk_st, dk_sh, dv_sb, dv_st, dv_sh,
          heads, tq, tk, 0, causal, scale};
-  return dispatch<false>(a, batch, tk, head_dim, dtype, stream);
+  const unsigned int nb = tile_blocks(a, batch, tk);
+  if (nb == 0) return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_dkv_d<float, false>(a, head_dim, nb, s);
+    case 1: return launch_dkv_d<__half, true>(a, head_dim, nb, s);
+    case 2: return launch_dkv_d<__nv_bfloat16, true>(a, head_dim, nb, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* ray_tpu_torch_cuda_error_string(int err) {

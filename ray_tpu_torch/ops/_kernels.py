@@ -3,15 +3,20 @@
 Each source under ``ray_tpu_torch/csrc`` is compiled at first use by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
 loaded with ``ctypes``. Libraries land in ``build/ray_tpu_torch/`` at the
-repository root, named by a hash of the source and the flags, so a changed
-source rebuilds and an unchanged one is reused. Nothing here runs at
-import: the CPU tests import this module on machines with no CUDA.
+repository root, named by a hash of the source, the shared headers and
+the flags, so a changed source rebuilds and an unchanged one is reused.
+Nothing here runs at import: the CPU tests import this module on machines
+with no CUDA.
 
 A launch wrapper checks device, dtype, shape and layout and raises on
 anything its kernel does not take; it allocates the outputs, launches on
 PyTorch's current stream, raises if the C function reports a CUDA error,
 and counts its launches in a plain int attribute (``flash_fwd.launches``,
-``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``).
+``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``). The bf16/fp16
+kernels of ``flash_fwd`` and ``flash_bwd_dq`` read their inputs by TMA;
+an input that TMA cannot read as it lies (``tma_aligned``) is copied
+first, and the copies are counted too (``flash_fwd.copies``,
+``flash_bwd_dq.copies``).
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_dq.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 
@@ -46,6 +51,8 @@ def _nvcc() -> str:
 
 def _lib_path(source: str) -> Path:
     digest = hashlib.sha256((_CSRC / source).read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
@@ -80,15 +87,24 @@ def build() -> dict[str, Path]:
 
 
 _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-# Each source's C entry points and their argtypes: pointers and the stream
-# as c_void_p, strides as long long, sizes and flags as int.
+_ERROR_STRING = {"ray_tpu_torch_cuda_error_string": (ctypes.c_char_p, [_I32])}
+# Each source's C entry points as (restype, argtypes): pointers and the
+# stream as c_void_p, strides as long long, sizes and flags as int.
 _ENTRY_POINTS = {
     "flash_fwd.cu": {
-        "ray_tpu_torch_flash_fwd": [_P] * 5 + [_I64] * 12 + [_I32] * 7 + [_F32, _P],
+        "ray_tpu_torch_flash_fwd": (_I32, [_P] * 5 + [_I64] * 12 + [_I32] * 7 + [_F32, _P]),
+        **_ERROR_STRING,
     },
     "flash_bwd.cu": {
-        "ray_tpu_torch_flash_bwd_dq": [_P] * 7 + [_I64] * 15 + [_I32] * 7 + [_F32, _P],
-        "ray_tpu_torch_flash_bwd_dkv": [_P] * 8 + [_I64] * 18 + [_I32] * 7 + [_F32, _P],
+        "ray_tpu_torch_flash_bwd_dq_fp32":
+            (_I32, [_P] * 7 + [_I64] * 15 + [_I32] * 6 + [_F32, _P]),
+        "ray_tpu_torch_flash_bwd_dkv":
+            (_I32, [_P] * 8 + [_I64] * 18 + [_I32] * 7 + [_F32, _P]),
+        **_ERROR_STRING,
+    },
+    "flash_bwd_dq.cu": {
+        "ray_tpu_torch_flash_bwd_dq": (_I32, [_P] * 7 + [_I64] * 15 + [_I32] * 7 + [_F32, _P]),
+        **_ERROR_STRING,
     },
 }
 
@@ -96,12 +112,10 @@ _ENTRY_POINTS = {
 @functools.lru_cache(maxsize=None)
 def _lib(source: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[source]))
-    for name, argtypes in _ENTRY_POINTS[source].items():
+    for name, (restype, argtypes) in _ENTRY_POINTS[source].items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = _I32
-    lib.ray_tpu_torch_cuda_error_string.argtypes = [_I32]
-    lib.ray_tpu_torch_cuda_error_string.restype = ctypes.c_char_p
+        fn.restype = restype
     return lib
 
 
@@ -154,6 +168,27 @@ def _check_attention_inputs(name: str, q, k, v, *q_like):
     return b, tq, h, d, tk
 
 
+def tma_aligned(t: torch.Tensor) -> bool:
+    """Whether a TMA copy can read the [B, T, H, D] tensor ``t`` as it
+    lies: its base address and its batch, position and head strides are
+    multiples of 16 bytes (head_dim is contiguous)."""
+    esize = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s * esize % 16 == 0 for s in t.stride()[:3])
+
+
+def _tma_inputs(wrapper, *tensors):
+    """``tensors`` as the bf16/fp16 kernels read them: each that
+    ``tma_aligned`` refuses is replaced by a contiguous copy, counted in
+    ``wrapper.copies``."""
+    out = []
+    for t in tensors:
+        if not tma_aligned(t):
+            t = t.clone(memory_format=torch.contiguous_format)
+            wrapper.copies += 1
+        out.append(t)
+    return out
+
+
 def flash_fwd(q, k, v, *, causal: bool, return_lse: bool):
     """Flash-attention forward on the card (csrc/flash_fwd.cu).
 
@@ -168,6 +203,8 @@ def flash_fwd(q, k, v, *, causal: bool, return_lse: bool):
            if return_lse else None)
     if o.numel() == 0:
         return o, lse
+    if q.dtype != torch.float32:
+        q, k, v = _tma_inputs(flash_fwd, q, k, v)
     _launch("flash_fwd.cu", "ray_tpu_torch_flash_fwd", q,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if lse is not None else None,
@@ -179,6 +216,7 @@ def flash_fwd(q, k, v, *, causal: bool, return_lse: bool):
 
 
 flash_fwd.launches = 0
+flash_fwd.copies = 0
 
 
 def _check_row_stats(name: str, b: int, h: int, tq: int, **stats):
@@ -193,7 +231,8 @@ def _check_row_stats(name: str, b: int, h: int, tq: int, **stats):
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool):
-    """Flash-attention backward, dQ pass, on the card (csrc/flash_bwd.cu).
+    """Flash-attention backward, dQ pass, on the card (csrc/flash_bwd_dq.cu
+    for bf16/fp16, csrc/flash_bwd.cu for fp32).
 
     q/dO [B, Tq, H, D], k/v [B, Tk, H, D] as ``flash_fwd`` takes them;
     ``lse`` the forward's [B*H, Tq, 1] f32 and ``delta`` = rowsum(dO * O)
@@ -205,18 +244,25 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool):
     dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq
-    _launch("flash_bwd.cu", "ray_tpu_torch_flash_bwd_dq", q,
+    if q.dtype == torch.float32:
+        source, name, dtype_code = "flash_bwd.cu", "ray_tpu_torch_flash_bwd_dq_fp32", ()
+    else:
+        q, k, v, do = _tma_inputs(flash_bwd_dq, q, k, v, do)
+        source, name = "flash_bwd_dq.cu", "ray_tpu_torch_flash_bwd_dq"
+        dtype_code = (_DTYPE_CODES[q.dtype],)
+    _launch(source, name, q,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
             *dq.stride()[:3],
-            b, h, tq, tk, d, _DTYPE_CODES[q.dtype], int(causal),
+            b, h, tq, tk, d, *dtype_code, int(causal),
             1.0 / math.sqrt(d))
     flash_bwd_dq.launches += 1
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.copies = 0
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool):

@@ -8,8 +8,10 @@ Three tiers:
   - ``blockwise_attention`` — online softmax over key blocks in a Python
     loop: O(T) memory for the scores, differentiable.
   - ``flash_attention`` — the hand-written Hopper kernels on a CUDA
-    tensor (forward csrc/flash_fwd.cu; backward csrc/flash_bwd.cu, a dQ
-    pass and a dK/dV pass, bound to it by a torch.autograd.Function),
+    tensor (forward csrc/flash_fwd.cu; backward a dQ pass,
+    csrc/flash_bwd_dq.cu for bf16/fp16 and csrc/flash_bwd.cu for fp32,
+    and a dK/dV pass, csrc/flash_bwd.cu, bound to it by a
+    torch.autograd.Function),
     their plain PyTorch versions (``flash_forward_plain``,
     ``flash_backward_plain``) on a CPU tensor.
 """

@@ -1,0 +1,81 @@
+"""The port's kernel bindings, on the CPU: every C entry point of
+ray_tpu_torch/csrc against the ctypes signature the wrappers declare, and
+the rule that decides which inputs the TMA kernels read in place."""
+
+import ctypes
+import re
+import types
+from pathlib import Path
+
+import pytest
+import torch
+
+from ray_tpu_torch.ops import _kernels
+
+_CSRC = Path(_kernels.__file__).resolve().parent.parent / "csrc"
+_EXTERN_C = re.compile(r'extern\s+"C"\s+[^;{()]*?\b(\w+)\s*\(([^)]*)\)\s*\{', re.S)
+
+
+def _c_functions(source: str) -> dict[str, int]:
+    """{name: number of parameters} of every extern "C" function defined
+    in ``source``."""
+    text = re.sub(r"//[^\n]*", "", (_CSRC / source).read_text())
+    return {name: len([p for p in params.split(",") if p.strip()])
+            for name, params in _EXTERN_C.findall(text)}
+
+
+def test_every_source_is_built():
+    assert sorted(_kernels.SOURCES) == sorted(p.name for p in _CSRC.glob("*.cu"))
+
+
+@pytest.mark.parametrize("source", sorted(p.name for p in _CSRC.glob("*.cu")))
+def test_ctypes_signatures_match_the_c_entry_points(source):
+    """A ctypes signature that drifts from its C function would pass
+    wrong arguments on the card, where nothing checks them."""
+    functions = _c_functions(source)
+    assert functions, f"no extern \"C\" function found in {source}"
+    declared = _kernels._ENTRY_POINTS[source]
+    assert set(declared) == set(functions)
+    for name, (restype, argtypes) in declared.items():
+        assert len(argtypes) == functions[name], name
+        assert restype is (ctypes.c_char_p if name.endswith("error_string") else ctypes.c_int)
+
+
+def _fused_qkv(d, dtype):
+    qkv = torch.zeros((2, 100, 12, 3 * d), dtype=dtype)
+    return qkv.split(d, dim=-1)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_tma_reads_the_models_fused_qkv_views_in_place(d, dtype):
+    """q, k, v as the model makes them: views of one [B, T, H, 3D]
+    projection at offsets 0, D, 2D with strides 3D, H*3D, T*H*3D."""
+    for t in _fused_qkv(d, dtype):
+        assert _kernels.tma_aligned(t)
+
+
+@pytest.mark.parametrize("case", ["offset", "head_stride", "position_stride", "batch_stride"])
+def test_tma_refuses_what_is_not_16_byte_aligned(case):
+    x = torch.zeros((2, 8, 4, 64 + 8), dtype=torch.bfloat16)
+    if case == "offset":
+        t = torch.zeros(2 * 8 * 4 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 8, 4, 64)
+    elif case == "head_stride":
+        t = torch.zeros((2, 8, 4, 65), dtype=torch.bfloat16)[..., :64]
+    elif case == "position_stride":
+        t = torch.zeros((2, 8, 4 * 64 + 1), dtype=torch.bfloat16)[..., :256].view(2, 8, 4, 64)
+    else:
+        t = torch.zeros(2 * (8 * 4 * 64 + 1), dtype=torch.bfloat16).as_strided(
+            (2, 8, 4, 64), (8 * 4 * 64 + 1, 256, 64, 1))
+    assert _kernels.tma_aligned(x[..., :64])
+    assert not _kernels.tma_aligned(t)
+
+
+def test_unaligned_inputs_are_copied_and_counted():
+    counter = types.SimpleNamespace(copies=0)
+    good = _fused_qkv(64, torch.bfloat16)[1]
+    bad = torch.zeros((2, 8, 4, 65), dtype=torch.bfloat16)[..., :64]
+    out_good, out_bad = _kernels._tma_inputs(counter, good, bad)
+    assert out_good is good
+    assert counter.copies == 1
+    assert _kernels.tma_aligned(out_bad) and torch.equal(out_bad, bad)

@@ -594,6 +594,19 @@ def phase_train():
     return row
 
 
+# The main path's kernels, by wrapper name in ray_tpu_torch.ops._kernels:
+# the source under ray_tpu_torch/csrc that the kernels line names (the
+# main path runs bf16, so its backward launches are the wgmma kernels'),
+# and the line of ray_tpu/ops/attention.py holding the TPU kernel each
+# replaces.
+_KERNEL_SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd_dq": "flash_bwd_dq.cu",
+                   "flash_bwd_dkv": "flash_bwd_dkv.cu"}
+_REPLACES = {"flash_fwd": 144, "flash_bwd_dq": 298, "flash_bwd_dkv": 332}
+# The wrappers of the TMA kernels: each counts the inputs it copies, and
+# the main path must copy none.
+_COPYING = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -603,11 +616,14 @@ def main() -> int:
     card = phase_setup()
     fwd_row = phase_kernels(card)[0]  # GPT-2 124M attention: bf16, causal
     bwd_row = phase_kernels_bwd(card)[0]  # its training shape: bf16, causal
+    _check(bwd_row["ms_dkv"] <= bwd_row["library_ms"],
+           f"the dK/dV kernel ({bwd_row['ms_dkv']} ms) is slower than SDPA's whole "
+           f"backward ({bwd_row['library_ms']} ms) at GPT-2 124M's training shape")
 
-    from ray_tpu_torch.ops._kernels import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from ray_tpu_torch.ops import _kernels
 
-    kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
-    copying = (flash_fwd, flash_bwd_dq)  # the wrappers of the TMA kernels
+    kernels = [getattr(_kernels, name) for name in _KERNEL_SOURCES]
+    copying = [getattr(_kernels, name) for name in _COPYING]
     for k in kernels:
         k.launches = 0
     for k in copying:
@@ -620,10 +636,6 @@ def main() -> int:
         _check(k.launches > 0, f"the main path never launched {k.__name__}")
     for k in copying:
         _check(k.copies == 0, f"{k.__name__} copied {k.copies} inputs on the main path")
-    # The main path runs bf16: its dQ launches are flash_bwd_dq.cu's.
-    source = {"flash_fwd": "flash_fwd.cu", "flash_bwd_dq": "flash_bwd_dq.cu",
-              "flash_bwd_dkv": "flash_bwd.cu"}
-    replaces = {"flash_fwd": 144, "flash_bwd_dq": 298, "flash_bwd_dkv": 332}
     # Per kernel: (max abs error, ms, bound ms, bound by). The backward
     # pair shares one library time, SDPA's backward for the same dO.
     numbers = {
@@ -642,8 +654,8 @@ def main() -> int:
         err, ms, bound_ms, bound_by, plain_ms, library_ms = numbers[k.__name__]
         summary["kernels"].append({
             "name": k.__name__, "route": "cuda",
-            "source": f"ray_tpu_torch/csrc/{source[k.__name__]}",
-            "replaces": f"ray_tpu/ops/attention.py:{replaces[k.__name__]}",
+            "source": f"ray_tpu_torch/csrc/{_KERNEL_SOURCES[k.__name__]}",
+            "replaces": f"ray_tpu/ops/attention.py:{_REPLACES[k.__name__]}",
             "launches": k.launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms})

@@ -10,13 +10,17 @@ with no CUDA.
 
 A launch wrapper checks device, dtype, shape and layout and raises on
 anything its kernel does not take; it allocates the outputs, launches on
-PyTorch's current stream, raises if the C function reports a CUDA error,
-and counts its launches in a plain int attribute (``flash_fwd.launches``,
-``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``). The bf16/fp16
-kernels of ``flash_fwd`` and ``flash_bwd_dq`` read their inputs by TMA;
-an input that TMA cannot read as it lies (``tma_aligned``) is copied
-first, and the copies are counted too (``flash_fwd.copies``,
-``flash_bwd_dq.copies``).
+PyTorch's current stream, raises if the C function reports a CUDA error
+(there is no fallback to another kernel or to the plain version), and
+counts its launches in a plain int attribute (``flash_fwd.launches``,
+``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``). fp32 runs on the
+FMA units (``flash_fwd.cu``, ``flash_bwd.cu``); bf16/fp16 on wgmma
+kernels that read q, k, v and dO by TMA (``flash_fwd.cu``,
+``flash_bwd_dq.cu``, ``flash_bwd_dkv.cu``). TMA needs a 16-byte aligned
+base and strides that are multiples of 16 bytes (``tma_aligned``); an
+input that breaks the rule is copied first, and the copies are counted
+too (``flash_fwd.copies``, ``flash_bwd_dq.copies``,
+``flash_bwd_dkv.copies``).
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_dq.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 
@@ -98,12 +102,17 @@ _ENTRY_POINTS = {
     "flash_bwd.cu": {
         "ray_tpu_torch_flash_bwd_dq_fp32":
             (_I32, [_P] * 7 + [_I64] * 15 + [_I32] * 6 + [_F32, _P]),
-        "ray_tpu_torch_flash_bwd_dkv":
-            (_I32, [_P] * 8 + [_I64] * 18 + [_I32] * 7 + [_F32, _P]),
+        "ray_tpu_torch_flash_bwd_dkv_fp32":
+            (_I32, [_P] * 8 + [_I64] * 18 + [_I32] * 6 + [_F32, _P]),
         **_ERROR_STRING,
     },
     "flash_bwd_dq.cu": {
         "ray_tpu_torch_flash_bwd_dq": (_I32, [_P] * 7 + [_I64] * 15 + [_I32] * 7 + [_F32, _P]),
+        **_ERROR_STRING,
+    },
+    "flash_bwd_dkv.cu": {
+        "ray_tpu_torch_flash_bwd_dkv":
+            (_I32, [_P] * 8 + [_I64] * 18 + [_I32] * 7 + [_F32, _P]),
         **_ERROR_STRING,
     },
 }
@@ -230,6 +239,17 @@ def _check_row_stats(name: str, b: int, h: int, tq: int, **stats):
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
+def _backward_route(pass_name: str, dtype) -> tuple[str, str, tuple]:
+    """Where a backward pass (``"dq"`` or ``"dkv"``) runs for ``dtype``:
+    (source, C entry point, the dtype code it takes, if any). fp32 goes to
+    the FMA kernels of flash_bwd.cu, bf16/fp16 to the wgmma kernel of
+    flash_bwd_<pass>.cu."""
+    if dtype == torch.float32:
+        return "flash_bwd.cu", f"ray_tpu_torch_flash_bwd_{pass_name}_fp32", ()
+    return (f"flash_bwd_{pass_name}.cu", f"ray_tpu_torch_flash_bwd_{pass_name}",
+            (_DTYPE_CODES[dtype],))
+
+
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool):
     """Flash-attention backward, dQ pass, on the card (csrc/flash_bwd_dq.cu
     for bf16/fp16, csrc/flash_bwd.cu for fp32).
@@ -244,12 +264,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool):
     dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq
-    if q.dtype == torch.float32:
-        source, name, dtype_code = "flash_bwd.cu", "ray_tpu_torch_flash_bwd_dq_fp32", ()
-    else:
+    source, name, dtype_code = _backward_route("dq", q.dtype)
+    if dtype_code:
         q, k, v, do = _tma_inputs(flash_bwd_dq, q, k, v, do)
-        source, name = "flash_bwd_dq.cu", "ray_tpu_torch_flash_bwd_dq"
-        dtype_code = (_DTYPE_CODES[q.dtype],)
     _launch(source, name, q,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
@@ -267,23 +284,31 @@ flash_bwd_dq.copies = 0
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool):
     """Flash-attention backward, dK/dV pass, on the card
-    (csrc/flash_bwd.cu). Inputs as ``flash_bwd_dq``. Returns (dK, dV)
-    [B, Tk, H, D] in k's and v's dtype."""
+    (csrc/flash_bwd_dkv.cu for bf16/fp16, csrc/flash_bwd.cu for fp32).
+    Inputs as ``flash_bwd_dq``. Returns (dK, dV) [B, Tk, H, D] in k's and
+    v's dtype; with no query (Tq = 0) both are zero and nothing
+    launches."""
     b, tq, h, d, tk = _check_attention_inputs("flash_bwd_dkv", q, k, v, do)
     _check_row_stats("flash_bwd_dkv", b, h, tq, lse=lse, delta=delta)
     dk = torch.empty((b, tk, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, tk, h, d), dtype=v.dtype, device=v.device)
     if dk.numel() == 0:
         return dk, dv
-    _launch("flash_bwd.cu", "ray_tpu_torch_flash_bwd_dkv", q,
+    if tq == 0:
+        return dk.zero_(), dv.zero_()
+    source, name, dtype_code = _backward_route("dkv", q.dtype)
+    if dtype_code:
+        q, k, v, do = _tma_inputs(flash_bwd_dkv, q, k, v, do)
+    _launch(source, name, q,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
             *dk.stride()[:3], *dv.stride()[:3],
-            b, h, tq, tk, d, _DTYPE_CODES[q.dtype], int(causal),
+            b, h, tq, tk, d, *dtype_code, int(causal),
             1.0 / math.sqrt(d))
     flash_bwd_dkv.launches += 1
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.copies = 0

@@ -9,9 +9,9 @@ Three tiers:
     loop: O(T) memory for the scores, differentiable.
   - ``flash_attention`` — the hand-written Hopper kernels on a CUDA
     tensor (forward csrc/flash_fwd.cu; backward a dQ pass,
-    csrc/flash_bwd_dq.cu for bf16/fp16 and csrc/flash_bwd.cu for fp32,
-    and a dK/dV pass, csrc/flash_bwd.cu, bound to it by a
-    torch.autograd.Function),
+    csrc/flash_bwd_dq.cu, and a dK/dV pass, csrc/flash_bwd_dkv.cu, for
+    bf16/fp16, both passes in csrc/flash_bwd.cu for fp32, bound to it by
+    a torch.autograd.Function),
     their plain PyTorch versions (``flash_forward_plain``,
     ``flash_backward_plain``) on a CPU tensor.
 """

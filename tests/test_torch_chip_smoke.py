@@ -86,3 +86,24 @@ def test_attended_pairs_counts_the_mask(tq, tk, causal):
     j = torch.arange(tk)[None, :]
     kept = int((j <= i).sum()) if causal else tq * tk
     assert chip_smoke._attended_pairs(tq, tk, causal) == kept
+
+
+def test_kernel_summary_names_sources_that_are_built():
+    """Every source chip_smoke's kernels line names is one the port builds,
+    and every kernel it names has a wrapper with a launch count."""
+    from ray_tpu_torch.ops import _kernels
+
+    assert set(chip_smoke._KERNEL_SOURCES.values()) <= set(_kernels.SOURCES)
+    assert set(chip_smoke._REPLACES) == set(chip_smoke._KERNEL_SOURCES)
+    for name in chip_smoke._KERNEL_SOURCES:
+        assert isinstance(getattr(_kernels, name).launches, int), name
+
+
+def test_copy_check_covers_every_counting_wrapper():
+    """chip_smoke requires 0 copies on the main path from every wrapper
+    that counts its copies."""
+    from ray_tpu_torch.ops import _kernels
+
+    counting = {name for name, obj in vars(_kernels).items()
+                if callable(obj) and hasattr(obj, "copies")}
+    assert counting == set(chip_smoke._COPYING)

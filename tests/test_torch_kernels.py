@@ -10,6 +10,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from ray_tpu_torch import kernel_report
 from ray_tpu_torch.ops import _kernels
 
 _CSRC = Path(_kernels.__file__).resolve().parent.parent / "csrc"
@@ -79,3 +80,63 @@ def test_unaligned_inputs_are_copied_and_counted():
     assert out_good is good
     assert counter.copies == 1
     assert _kernels.tma_aligned(out_bad) and torch.equal(out_bad, bad)
+
+
+@pytest.mark.parametrize("pass_name", ["dq", "dkv"])
+@pytest.mark.parametrize("dtype,source,name", [
+    (torch.float32, "flash_bwd.cu", "ray_tpu_torch_flash_bwd_{}_fp32"),
+    (torch.float16, "flash_bwd_{}.cu", "ray_tpu_torch_flash_bwd_{}"),
+    (torch.bfloat16, "flash_bwd_{}.cu", "ray_tpu_torch_flash_bwd_{}"),
+])
+def test_backward_passes_route_each_dtype_to_its_kernel(pass_name, dtype, source, name):
+    """fp32 to the FMA kernels of flash_bwd.cu, bf16/fp16 to the wgmma
+    kernel of the pass's own source, which also takes the dtype code."""
+    got_source, got_name, dtype_code = _kernels._backward_route(pass_name, dtype)
+    assert (got_source, got_name) == (source.format(pass_name), name.format(pass_name))
+    assert dtype_code == (() if dtype == torch.float32 else (_kernels._DTYPE_CODES[dtype],))
+    assert got_source in _kernels.SOURCES
+    _, argtypes = _kernels._ENTRY_POINTS[got_source][got_name]
+    # The pointers and strides of a pass, then its ints: batch, heads, Tq,
+    # Tk, head_dim, (dtype,) causal.
+    assert argtypes.count(ctypes.c_int) == 6 + len(dtype_code)
+
+
+def test_dkv_wrapper_counts_the_inputs_it_copies():
+    """flash_bwd_dkv reads q, k, v and dO by TMA: an input TMA cannot read
+    as it lies is copied, and the copy counted on the wrapper."""
+    wrapper = _kernels.flash_bwd_dkv
+    before = wrapper.copies
+    q, k, v = _fused_qkv(64, torch.bfloat16)
+    bad = torch.zeros((2, 100, 12, 65), dtype=torch.bfloat16)[..., :64]
+    try:
+        out = _kernels._tma_inputs(wrapper, q, k, v, bad)
+        assert wrapper.copies == before + 1
+        assert all(a is b for a, b in zip(out[:3], (q, k, v)))
+        assert _kernels.tma_aligned(out[3]) and torch.equal(out[3], bad)
+    finally:
+        wrapper.copies = before
+
+
+_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flash_bwd_dkv_kernelI13__nv_bfloat16Li64EEEv14CUtensorMap_stS2_S2_S2_NS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_bwd_dkv_kernelI13__nv_bfloat16Li64EEEv14CUtensorMap_stS2_S2_S2_NS_4ArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 157 registers, used 1 barriers, 1024 bytes cmem[0]
+ptxas info    : Compiling entry function 'plain_kernel' for 'sm_90a'
+ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers
+"""
+
+
+def test_kernel_report_reads_registers_and_spills_from_ptxas():
+    """The ptxas log reader behind PERF.md's register and spill counts."""
+    rows = kernel_report.ptxas_rows(_PTXAS_LOG)
+    assert rows == [
+        {"kernel": "flash_bwd_dkv_kernelI13__nv_bfloat16Li64EE", "notes": [],
+         "stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 157},
+        {"kernel": "plain_kernel",
+         "notes": ["ptxas info    : (C7515) Potential Performance Loss: "
+                   "wgmma.mma_async instructions are serialized"],
+         "stack": 8, "spill_stores": 4, "spill_loads": 4, "registers": 255},
+    ]

@@ -10,8 +10,10 @@ Phases, in order; any failed check exits non-zero:
                the plain version and the library call that computes the
                same function; the bound for the same work on this card
                and the kernel's share of it (bound / time). The flash
-               forward (at the forward's and the train step's shapes),
-               then the backward pair (dQ, dK/dV).
+               forward, then the backward pair (dQ, dK/dV), each at
+               every shape and type the main path gives it (GPT-2's
+               forward and train step, moe_small's train step; bf16 and
+               fp32) and at a few others.
   3. forward — the main path, part 1: GPT-2 124M (full width, random
                weights from a seed) forward at B=4, T=1024 with
                attn_impl="flash", held against attn_impl="reference";
@@ -26,11 +28,30 @@ Phases, in order; any failed check exits non-zero:
                attn_impl="reference"; bf16: 6 steps, the loss must fall and
                each of the three kernels must launch once per layer per
                step; step time, tokens/s and one profiled step.
+  6. moe     — the main path, part 4: one moe_small MoE layer (f32, x
+               [8, 1024, 768]) under autograd on the card against the
+               same function on the CPU: no token routed differently,
+               then the output, aux and every gradient within 1e-4 of each
+               tensor's largest |value|; moe_small (full width, 12
+               layers, 8 experts, top-2, random weights from seed 0)
+               trained at B=4, T=2048 with attn_impl="flash", bf16: 6
+               steps of FusedClipAdamW (falling finite loss, router_aux in
+               [1, E], each kernel once per layer per step; step time,
+               tokens/s, peak memory, one profiled step with the f32
+               GEMM kernels' (dispatch/combine) share of it), then 3
+               steps each of FusedClipAdamW and of the optax-style
+               chain(clip_by_global_norm, adamw) from the same seed, in
+               bf16 and in f32 compute, with the tokens each step routes
+               differently in the two runs; losses and grad norms must
+               match as stated at _OPTAX_STEP_TOL.
 
-Kernel launch counts are set to 0 just before phase 3 and read just
-after phase 5; launches made in phase 2 do not count. Over the same
-phases the wrappers must copy no input (the model's q, k, v are views
-that TMA reads in place).
+Each path of phases 3-6 is driven with the kernels' launch and copy
+counts set to 0 just before it and read just after; launches made in
+phase 2 do not count. No path may make the wrappers copy an input (the
+model's q, k, v are views that TMA reads in place). The kernels line
+sums the launches of phases 3-6, one entry for each kernel: a wrapper
+sends fp32 to an FMA kernel and bf16/fp16 to a wgmma kernel, and counts
+the two apart.
 
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
@@ -166,7 +187,9 @@ def phase_kernels(card: str):
     cases = [(4, 1024, 12, 64, dt, causal)
              for causal in (True, False)
              for dt in (torch.bfloat16, torch.float16, torch.float32)]
-    cases.append((8, 1024, 12, 64, torch.bfloat16, True))  # the train step's
+    # The train steps' (GPT-2's, moe_small's), in both of their types.
+    cases += [(8, 1024, 12, 64, dt, True) for dt in (torch.bfloat16, torch.float32)]
+    cases += [(4, 2048, 12, 64, dt, True) for dt in (torch.bfloat16, torch.float32)]
     cases.append((1, 2048, 32, 128, torch.bfloat16, True))
     # Ragged edges (T not a multiple of the kernel's 64-row tiles) and the
     # remaining type/head_dim instantiations, at small shapes.
@@ -277,12 +300,13 @@ def phase_kernels_bwd(card: str):
     gen = torch.Generator(device="cuda").manual_seed(1)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     # (B, Tq, Tk, H, D, dtype, causal): the training shape of GPT-2 124M
-    # in every type, a long head_dim-128 shape, ragged T of 100 and 200 in
-    # both head dims, and a causal Tq < Tk case whose last key tiles meet
-    # no query.
+    # in every type, moe_small's in both of its types, a long head_dim-128
+    # shape, ragged T of 100 and 200 in both head dims, and a causal
+    # Tq < Tk case whose last key tiles meet no query.
     cases = [(8, 1024, 1024, 12, 64, dt, causal)
              for causal in (True, False)
              for dt in (torch.bfloat16, torch.float16, torch.float32)]
+    cases += [(4, 2048, 2048, 12, 64, dt, True) for dt in (torch.bfloat16, torch.float32)]
     cases += [(1, 2048, 2048, 32, 128, torch.bfloat16, True),
               (2, 100, 100, 12, 64, torch.bfloat16, True),
               (1, 100, 100, 4, 128, torch.float32, False),
@@ -353,10 +377,18 @@ def _sync_ms(fn, *, iters: int = 5) -> float:
     return statistics.median(times)
 
 
+def _is_f32_gemm(name: str) -> bool:
+    """Whether a kernel is one of the f32 (FMA, not TF32) GEMMs that
+    torch's products launch on an H100: cuBLAS's xmma ``f32f32_f32f32``
+    and CUTLASS's SIMT ``sgemm`` kernels."""
+    return "gemm" in name and ("gemm_f32f32_f32f32" in name or "sgemm" in name)
+
+
 def _profile(fn, top: int = 6) -> dict:
     """One call of ``fn`` under torch.profiler: wall time, the device
     time its kernels took (sum of self device times), the kernels that
-    took the most, and this repo's flash kernels whatever their rank."""
+    took the most, this repo's flash kernels whatever their rank, and
+    the device time and calls of all f32 GEMM kernels together."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -374,12 +406,16 @@ def _profile(fn, top: int = 6) -> dict:
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
+    f32_gemm = [(ms, cnt) for n, ms, cnt in rows if _is_f32_gemm(n)]
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / wall_ms,
             "top": [{"name": n[:80], "ms": ms, "calls": cnt}
                     for n, ms, cnt in rows[:top]],
             "flash": [{"name": n[:80], "ms": ms, "calls": cnt}
-                      for n, ms, cnt in rows if "flash_" in n]}
+                      for n, ms, cnt in rows if "flash_" in n],
+            "f32_gemm": {"ms": sum(ms for ms, _ in f32_gemm),
+                         "calls": sum(cnt for _, cnt in f32_gemm),
+                         "kernels": len(f32_gemm)}}
 
 
 def phase_forward():
@@ -594,17 +630,256 @@ def phase_train():
     return row
 
 
-# The main path's kernels, by wrapper name in ray_tpu_torch.ops._kernels:
-# the source under ray_tpu_torch/csrc that the kernels line names (the
-# main path runs bf16, so its backward launches are the wgmma kernels'),
-# and the line of ray_tpu/ops/attention.py holding the TPU kernel each
-# replaces.
-_KERNEL_SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd_dq": "flash_bwd_dq.cu",
-                   "flash_bwd_dkv": "flash_bwd_dkv.cu"}
-_REPLACES = {"flash_fwd": 144, "flash_bwd_dq": 298, "flash_bwd_dkv": 332}
+# The MoE layer on the card against the same function on the CPU, in f32:
+# only the order of the sums differs (no TF32: main() turns it off), so
+# every tensor agrees to 1e-4 of its largest |value| once the routing is
+# the same.
+_MOE_LAYER_TOL = 1e-4
+# The optax-style steps against FusedClipAdamW's: the same update, up to
+# the f32 rounding of its last operations. Step 1 starts from the same
+# parameters: its loss and grad norm agree to 1e-6 and it routes every
+# token alike. Losses agree to 1e-3 over 3 bf16 steps; grad norms to 1e-3
+# over 3 steps in f32 compute. The bf16 grad norms part by more than
+# 1e-3 at step 3 (PERF.md); they are printed beside the tokens each step
+# routes differently in the two runs, not held to a limit.
+_OPTAX_STEP_TOL = 1e-3
+_SAME_STEP_TOL = 1e-6
+
+
+def _routing_mismatches(kept_a, kept_b) -> int:
+    """Tokens whose set of kept experts differs between two routings
+    (bool [..., g, E] each, on any devices)."""
+    return int((kept_a.cpu() != kept_b.cpu()).any(-1).sum())
+
+
+def _moe_layer(x, router_w, w_gate, w_up, w_down, dout, top_k):
+    """moe_swiglu under autograd on the inputs' device: (the experts
+    keeping each token [n, g, E], out, aux, the gradients of x, router_w,
+    w_gate, w_up, w_down for loss = sum(out * dout) + aux)."""
+    from ray_tpu_torch.ops import moe
+
+    leaves = [t.detach().requires_grad_() for t in (x, router_w, w_gate, w_up, w_down)]
+    with torch.no_grad():
+        kept = moe.route(x, router_w, top_k=top_k)[1].sum(-1) > 0
+    out, aux = moe.moe_swiglu(*leaves, top_k=top_k)
+    grads = torch.autograd.grad((out * dout).sum() + aux, leaves)
+    return kept, out.detach(), aux.detach(), grads
+
+
+def _model_routing(params, inputs, cfg):
+    """The experts keeping each token in every MoE layer of one forward
+    of the model (no gradient): one bool [n, g, E] per layer, taken from
+    each layer's own moe_swiglu inputs."""
+    from ray_tpu_torch import models
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.ops import moe
+
+    kept, moe_swiglu = [], transformer.moe_swiglu
+
+    def spy(x, router_w, *weights, top_k, capacity_factor, **kw):
+        kept.append(moe.route(x, router_w, top_k=top_k,
+                              capacity_factor=capacity_factor)[1].sum(-1) > 0)
+        return moe_swiglu(x, router_w, *weights, top_k=top_k,
+                          capacity_factor=capacity_factor, **kw)
+
+    transformer.moe_swiglu = spy
+    try:
+        with torch.no_grad():
+            models.forward(params, inputs, cfg)
+    finally:
+        transformer.moe_swiglu = moe_swiglu
+    return kept
+
+
+def phase_moe(card: str):
+    import dataclasses
+
+    from ray_tpu_torch import models
+    from ray_tpu_torch.ops import _kernels, moe, optim
+
+    cfg = models.moe_small(max_seq_len=2048, remat=False, loss_chunk=4096,
+                           ce_impl="fused", ce_accuracy=False, attn_impl="flash")
+    E, k = cfg.n_experts, cfg.expert_top_k
+
+    # One MoE layer, f32, on the card against the CPU.
+    gen = torch.Generator().manual_seed(0)
+    D, F = cfg.d_model, cfg.ffn_dim
+    inputs = (torch.randn((8, 1024, D), generator=gen),
+              torch.randn((D, E), generator=gen) * 0.02,
+              torch.randn((E, D, F), generator=gen) * 0.02,
+              torch.randn((E, D, F), generator=gen) * 0.02,
+              torch.randn((E, F, D), generator=gen) * 0.02 / math.sqrt(2 * cfg.n_layers),
+              torch.randn((8, 1024, D), generator=gen))
+    kept_cpu, *ref = _moe_layer(*inputs, top_k=k)
+    kept_gpu, *got = _moe_layer(*(t.cuda() for t in inputs), top_k=k)
+    rerouted = _routing_mismatches(kept_gpu, kept_cpu)
+    _check(rerouted == 0, f"the MoE layer routed {rerouted} tokens differently on "
+                          f"the card than on the CPU")
+    names = ("out", "aux", "d_x", "d_router", "d_w_gate", "d_w_up", "d_w_down")
+    ref = ref[:2] + list(ref[2])
+    got = got[:2] + list(got[2])
+    layer_err = {}
+    for name, a, b in zip(names, got, ref):
+        layer_err[name] = ((a.cpu() - b).abs().max() / b.abs().max()).item()
+        _check(math.isfinite(layer_err[name]) and layer_err[name] <= _MOE_LAYER_TOL,
+               f"MoE layer {name} on the card differs from the CPU by "
+               f"{layer_err[name]} of its max |value|")
+    print("[moe] layer " + json.dumps({
+        "x": [8, 1024, D], "experts": E, "top_k": k, "tokens": 8 * 1024,
+        "tokens_rerouted": rerouted, "kept_slots": int(kept_cpu.sum()),
+        "max_err_share": layer_err}))
+    del inputs, ref, got
+
+    kernels = (_kernels.flash_fwd, _kernels.flash_bwd_dq, _kernels.flash_bwd_dkv)
+
+    def counts():
+        return [kk.launches for kk in kernels]
+
+    B, T = 4, 2048
+    tokens = torch.randint(0, cfg.vocab_size, (B, T + 1),
+                           generator=torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    batch = {"tokens": tokens}
+
+    def train(opt, n_steps, cfg=cfg, routings=None):
+        """n_steps of make_train_step from the seed-0 state; the state, the
+        step and each step's (loss, grad_norm, router_aux, ms). A list
+        ``routings`` gets, before each step, the routing that step's
+        parameters give the batch (outside the step and its counts)."""
+        state = models.init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                                        cfg, opt, device="cuda")
+        step = models.make_train_step(cfg, opt)
+        rows = []
+        for _ in range(n_steps):
+            if routings is not None:
+                routings.append(_model_routing(state["params"], tokens[:, :-1], cfg))
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss = m["loss"].item()  # a device-to-host sync
+            ms = (time.perf_counter() - t0) * 1e3
+            rows.append((loss, m["grad_norm"].item(), m["router_aux"].item(), ms))
+            per_step = [a - b for a, b in zip(counts(), before)]
+            _check(per_step == [cfg.n_layers] * 3,
+                   f"a moe_small step launched {per_step} (fwd, dq, dkv), expected "
+                   f"{cfg.n_layers} each")
+        return state, step, rows
+
+    torch.cuda.reset_peak_memory_stats()
+    fused = optim.FusedClipAdamW(learning_rate=3e-4, weight_decay=0.1, clip_norm=1.0)
+    state, step, rows = train(fused, 6)
+    peak = torch.cuda.max_memory_allocated()
+    losses, norms, auxes, step_ms = (list(col) for col in zip(*rows))
+    _check(all(math.isfinite(x) for x in losses + norms + auxes),
+           f"non-finite loss, grad_norm or router_aux: {rows}")
+    _check(losses[-1] < losses[0], f"moe_small loss did not fall: {losses}")
+    _check(all(1.0 <= a <= E for a in auxes), f"router_aux outside [1, {E}]: {auxes}")
+    median_ms = statistics.median(step_ms[1:])  # the first step warms up
+    holder = {"state": state}
+    del state
+
+    def one_step():
+        holder["state"], m = step(holder["state"], batch)
+        m["loss"].item()
+
+    # The f32 GEMM kernels of the step are the dispatch and combine
+    # einsums (5 products a layer: 2 forward, 3 backward) and the router's
+    # (tiny beside them); their bound is the dispatch/combine work alone:
+    # 5 products of 2·n·g·(E·C)·D operations a layer at the f32 peak.
+    prof = _profile(one_step, top=10)
+    del holder
+    g = moe._group_size(B * T, 1024)
+    c = moe.expert_capacity(g, E, k, cfg.expert_capacity_factor)
+    dc_bound = (cfg.n_layers * 5 * 2 * B * T * E * c * D
+                / _peaks(card)[1][torch.float32] * 1e3)
+    row = {"batch": B, "seq": T, "params": cfg.num_params(), "losses": losses,
+           "grad_norms": norms, "router_aux": auxes, "step_ms": step_ms,
+           "step_ms_median": median_ms, "tokens_per_s": B * T / (median_ms / 1e3),
+           "peak_memory_bytes": peak, "launches_per_step": cfg.n_layers,
+           "f32_gemm_ms": prof["f32_gemm"]["ms"],
+           "f32_gemm_share_of_step_device_time":
+               prof["f32_gemm"]["ms"] / prof["device_ms"],
+           "dispatch_combine_bound_ms": dc_bound,
+           "dispatch_combine_bound_share": dc_bound / prof["f32_gemm"]["ms"]}
+    print("[moe] train " + json.dumps(row))
+    print("[moe] profile bf16 step " + json.dumps(prof))
+
+    # The optax-style path against FusedClipAdamW from the same seed: the
+    # same update, through optimizer.update; 3 steps of each in bf16, then
+    # in f32 compute. Before each step, the tokens routed differently in
+    # the two runs, summed over the layers.
+    def chain():
+        return optim.chain(optim.clip_by_global_norm(1.0),
+                           optim.adamw(3e-4, weight_decay=0.1))
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    def compare(c):
+        routings = ([], [])
+        rows_a = train(fused, 3, c, routings[0])[2]
+        rows_b = train(chain(), 3, c, routings[1])[2]
+        rerouted = [sum(_routing_mismatches(a, b) for a, b in zip(*per_step))
+                    for per_step in zip(*routings)]
+        _check(rerouted[0] == 0 and rel(rows_b[0][0], rows_a[0][0]) <= _SAME_STEP_TOL
+               and rel(rows_b[0][1], rows_a[0][1]) <= _SAME_STEP_TOL,
+               f"the first {c.dtype} optax-style step differs from FusedClipAdamW's: "
+               f"{rows_b[0]} vs {rows_a[0]}, {rerouted[0]} tokens rerouted")
+        return {"losses": [[r[0] for r in rows] for rows in (rows_a, rows_b)],
+                "grad_norms": [[r[1] for r in rows] for rows in (rows_a, rows_b)],
+                "step_ms": [[r[3] for r in rows] for rows in (rows_a, rows_b)],
+                "loss_rel_diff": [rel(b[0], a[0]) for a, b in zip(rows_a, rows_b)],
+                "grad_norm_rel_diff": [rel(b[1], a[1]) for a, b in zip(rows_a, rows_b)],
+                "tokens_rerouted": rerouted,
+                "token_layer_pairs": B * T * cfg.n_layers}
+
+    optax_row = {"bf16": compare(cfg),
+                 "f32": compare(dataclasses.replace(cfg, dtype="float32"))}
+    print("[moe] optax-style (FusedClipAdamW, chain) " + json.dumps(optax_row))
+    _check(all(d <= _OPTAX_STEP_TOL for d in optax_row["bf16"]["loss_rel_diff"]),
+           f"bf16 optax-style losses differ from FusedClipAdamW's: {optax_row['bf16']}")
+    _check(all(d <= _OPTAX_STEP_TOL for key in ("loss_rel_diff", "grad_norm_rel_diff")
+               for d in optax_row["f32"][key]),
+           f"f32 optax-style steps differ from FusedClipAdamW's: {optax_row['f32']}")
+    return row
+
+
+# The main path's kernels as the kernels line names them: (the wrapper in
+# ray_tpu_torch.ops._kernels that launches it, whether it is the fp32
+# kernel, the source under ray_tpu_torch/csrc that holds it, the line of
+# ray_tpu/ops/attention.py holding the TPU kernel it replaces). Each
+# wrapper sends fp32 to an FMA kernel and bf16/fp16 to a wgmma kernel,
+# and counts its fp32 launches apart (``launches_fp32``).
+_KERNELS = {
+    "flash_fwd": ("flash_fwd", False, "flash_fwd.cu", 144),
+    "flash_fwd_fp32": ("flash_fwd", True, "flash_fwd.cu", 144),
+    "flash_bwd_dq": ("flash_bwd_dq", False, "flash_bwd_dq.cu", 298),
+    "flash_bwd_dq_fp32": ("flash_bwd_dq", True, "flash_bwd.cu", 298),
+    "flash_bwd_dkv": ("flash_bwd_dkv", False, "flash_bwd_dkv.cu", 332),
+    "flash_bwd_dkv_fp32": ("flash_bwd_dkv", True, "flash_bwd.cu", 332),
+}
 # The wrappers of the TMA kernels: each counts the inputs it copies, and
 # the main path must copy none.
 _COPYING = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _launch_counts() -> dict:
+    """The launches of each kernel of _KERNELS since its wrapper's counts
+    were last set to 0."""
+    from ray_tpu_torch.ops import _kernels
+
+    counts = {}
+    for name, (wrapper, fp32, _, _) in _KERNELS.items():
+        w = getattr(_kernels, wrapper)
+        counts[name] = w.launches_fp32 if fp32 else w.launches - w.launches_fp32
+    return counts
+
+
+def _case(rows, shape, dtype):
+    """The causal phase-2 row at ``shape`` in ``dtype``."""
+    return next(r for r in rows
+                if r["shape"] == shape and r["dtype"] == dtype and r["causal"])
 
 
 def main() -> int:
@@ -614,49 +889,71 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = phase_setup()
-    fwd_row = phase_kernels(card)[0]  # GPT-2 124M attention: bf16, causal
-    bwd_row = phase_kernels_bwd(card)[0]  # its training shape: bf16, causal
+    fwd_rows = phase_kernels(card)
+    bwd_rows = phase_kernels_bwd(card)
+    bwd_row = _case(bwd_rows, [8, 1024, 1024, 12, 64], "bfloat16")  # GPT-2 124M's
     _check(bwd_row["ms_dkv"] <= bwd_row["library_ms"],
            f"the dK/dV kernel ({bwd_row['ms_dkv']} ms) is slower than SDPA's whole "
            f"backward ({bwd_row['library_ms']} ms) at GPT-2 124M's training shape")
 
     from ray_tpu_torch.ops import _kernels
 
-    kernels = [getattr(_kernels, name) for name in _KERNEL_SOURCES]
-    copying = [getattr(_kernels, name) for name in _COPYING]
-    for k in kernels:
-        k.launches = 0
-    for k in copying:
-        k.copies = 0
-    with torch.inference_mode():
-        phase_forward()
-        phase_serve()
-    phase_train()
-    for k in kernels:
-        _check(k.launches > 0, f"the main path never launched {k.__name__}")
-    for k in copying:
-        _check(k.copies == 0, f"{k.__name__} copied {k.copies} inputs on the main path")
-    # Per kernel: (max abs error, ms, bound ms, bound by). The backward
-    # pair shares one library time, SDPA's backward for the same dO.
-    numbers = {
-        "flash_fwd": (fwd_row["max_abs_err"], fwd_row["ms"], fwd_row["bound_ms"],
-                      fwd_row["bound_by"], fwd_row["plain_ms"], fwd_row["library_ms"]),
-        "flash_bwd_dq": (bwd_row["errors"]["dq"]["max_abs_err"], bwd_row["ms_dq"],
-                         bwd_row["bound_ms_dq"], bwd_row["bound_by_dq"],
-                         bwd_row["plain_ms"], bwd_row["library_ms"]),
-        "flash_bwd_dkv": (max(bwd_row["errors"][n]["max_abs_err"] for n in ("dk", "dv")),
-                          bwd_row["ms_dkv"], bwd_row["bound_ms_dkv"],
-                          bwd_row["bound_by_dkv"], bwd_row["plain_ms"],
-                          bwd_row["library_ms"]),
-    }
+    wrappers = [getattr(_kernels, name) for name in _COPYING]
+
+    def inference(fn):
+        def run():
+            with torch.inference_mode():
+                fn()
+        return run
+
+    # Each path of the main path with the counts set to 0 just before it
+    # and read just after; the paths that train must launch every kernel
+    # (they take fp32 and bf16 steps).
+    paths = (("forward", inference(phase_forward), False),
+             ("serve", inference(phase_serve), False),
+             ("train", phase_train, True),
+             ("moe", lambda: phase_moe(card), True))
+    launches = dict.fromkeys(_KERNELS, 0)
+    for name, run, must_launch in paths:
+        for w in wrappers:
+            w.launches = w.launches_fp32 = w.copies = 0
+        run()
+        counted = _launch_counts()
+        print(f"[{name}] launches " + json.dumps(counted))
+        for kname, n in counted.items():
+            _check(n > 0 or not must_launch, f"the {name} path never launched {kname}")
+            launches[kname] += n
+        for w in wrappers:
+            _check(w.copies == 0, f"{w.__name__} copied {w.copies} inputs on the "
+                                  f"{name} path")
+    for kname, n in launches.items():
+        _check(n > 0, f"the main path never launched {kname}")
+    # Per kernel, from phase 2 at GPT-2 124M's shapes (forward B=4,
+    # backward B=8; T=1024, causal) in the kernel's type: (max abs error,
+    # ms, bound ms, bound by, plain ms, library ms). The backward pair
+    # shares one plain time and one library time, SDPA's backward for the
+    # same dO.
+    numbers = {}
+    for kname, (wrapper, fp32, _, _) in _KERNELS.items():
+        dtype = "float32" if fp32 else "bfloat16"
+        if wrapper == "flash_fwd":
+            r = _case(fwd_rows, [4, 1024, 12, 64], dtype)
+            err, key = r["max_abs_err"], ""
+        else:
+            r = _case(bwd_rows, [8, 1024, 1024, 12, 64], dtype)
+            key = "_dq" if wrapper == "flash_bwd_dq" else "_dkv"
+            err = max(r["errors"][g]["max_abs_err"]
+                      for g in (("dq",) if key == "_dq" else ("dk", "dv")))
+        numbers[kname] = (err, r["ms" + key], r["bound_ms" + key], r["bound_by" + key],
+                          r["plain_ms"], r["library_ms"])
     summary = {"kernels": []}
-    for k in kernels:
-        err, ms, bound_ms, bound_by, plain_ms, library_ms = numbers[k.__name__]
+    for kname, (_, _, source, line) in _KERNELS.items():
+        err, ms, bound_ms, bound_by, plain_ms, library_ms = numbers[kname]
         summary["kernels"].append({
-            "name": k.__name__, "route": "cuda",
-            "source": f"ray_tpu_torch/csrc/{_KERNEL_SOURCES[k.__name__]}",
-            "replaces": f"ray_tpu/ops/attention.py:{_REPLACES[k.__name__]}",
-            "launches": k.launches, "max_abs_err": err, "ms": ms,
+            "name": kname, "route": "cuda",
+            "source": f"ray_tpu_torch/csrc/{source}",
+            "replaces": f"ray_tpu/ops/attention.py:{line}",
+            "launches": launches[kname], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms})
     print(json.dumps(summary))

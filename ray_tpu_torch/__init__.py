@@ -2,9 +2,11 @@
 
 The JAX package ``ray_tpu`` is the reference; this package imports
 nothing of it and nothing of JAX. Ported so far: the ops (attention with
-a hand-written Hopper flash-attention forward kernel), the transformer
-model family's inference path, and the dense single-device LLM engine.
-``interop.params_from_jax`` carries a JAX parameter tree across.
+hand-written Hopper flash-attention kernels, forward and backward; MoE
+routing; the optimizers), the transformer model family on one device
+(dense and MoE; inference and training), and the dense single-device
+LLM engine. ``interop.params_from_jax`` carries a JAX parameter tree
+across.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU.

@@ -66,8 +66,8 @@ class LLMEngine:
         c = self.model_config
         if c.n_experts > 0:
             raise NotImplementedError(
-                "MoE models: not ported yet (ROADMAP.md §1 item 2: the rest "
-                "of the model family)")
+                "MoE decode is not wired into the slot engine yet; train with "
+                "MoE (models.transformer) and serve dense.")
         unsupported = {
             "paged KV (kv_page_size)": config.kv_page_size,
             "tensor parallelism": int(config.tensor_parallel_size or 1) > 1,

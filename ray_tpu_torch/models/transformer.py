@@ -15,10 +15,15 @@ Two architectures behind one config:
   - ``arch="gpt2"``  — learned positions, LayerNorm, GELU MLP, tied head.
   - ``arch="llama"`` — RoPE, RMSNorm, SwiGLU, GQA, untied head.
 
+MoE (llama arch, ``n_experts > 0``): each block's FFN is
+``ray_tpu_torch.ops.moe.moe_swiglu``, and ``lm_loss`` adds the router's
+load-balance loss.
+
 Training: ``lm_loss`` (full, chunked and fused chunked cross-entropy),
-``make_train_step`` with the fused clip+AdamW optimizer and gradient
+``make_train_step`` with the fused clip+AdamW optimizer or an
+optax-style one (``ray_tpu_torch.ops.optim``) and gradient
 accumulation, and ``remat`` as torch.utils.checkpoint. Sharding
-(``mesh``) and MoE layers arrive with later slices of the port.
+(``mesh``) arrives with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ from torch.utils.checkpoint import (
 )
 
 from ray_tpu_torch.ops.attention import attention, dot_product_attention
-from ray_tpu_torch.ops.optim import FusedClipAdamW
+from ray_tpu_torch.ops.moe import moe_swiglu
+from ray_tpu_torch.ops.optim import FusedClipAdamW, apply_updates, global_norm
 from ray_tpu_torch.ops.tree import tree_leaves, tree_map, tree_unflatten
 from ray_tpu_torch.ops.layers import (
     apply_rope,
@@ -79,8 +85,7 @@ class TransformerConfig:
     loss_chunk: int = 0
     ce_accuracy: bool = True
     ce_impl: str = "fused"
-    # Mixture of Experts (llama arch only; 0 = dense FFN). Parameters can
-    # be made; the forward pass raises until MoE is ported.
+    # Mixture of Experts (llama arch only; 0 = dense FFN).
     n_experts: int = 0
     expert_top_k: int = 2
     expert_capacity_factor: float = 1.25
@@ -320,10 +325,6 @@ def _check_supported(c: TransformerConfig, mesh=None):
         raise NotImplementedError(
             "sharded forward (mesh=) is not ported yet (ROADMAP.md §1 item 3: "
             "parallel/)")
-    if c.n_experts > 0:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP.md §1 item 2: the rest "
-            "of the model family)")
 
 
 def _final_norm(x, params, c):
@@ -461,6 +462,14 @@ def _block(x, lp, c: TransformerConfig, *, rope, positions=None):
         h = layer_norm(x, lp["ln2"]["w"], lp["ln2"]["b"])
         m = gelu_mlp(h, lp["mlp"]["w_in"].to(dt), lp["mlp"]["b_in"].to(dt),
                      lp["mlp"]["w_out"].to(dt), lp["mlp"]["b_out"].to(dt))
+    elif c.n_experts > 0:
+        # The weights go in uncast: moe_swiglu runs the router in f32 and
+        # casts the experts to x's dtype itself.
+        h = rms_norm(x, lp["ln2"]["w"])
+        m, aux = moe_swiglu(
+            h, lp["router"]["w"], lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
+            lp["mlp"]["w_down"], top_k=c.expert_top_k,
+            capacity_factor=c.expert_capacity_factor)
     else:
         h = rms_norm(x, lp["ln2"]["w"])
         m = swiglu(h, lp["mlp"]["w_gate"].to(dt), lp["mlp"]["w_up"].to(dt),
@@ -628,7 +637,11 @@ def fused_chunked_ce_loss(x, head, targets, mask, z_loss, chunk, accuracy):
 def lm_loss(params, batch, config: TransformerConfig, *, mesh=None,
             z_loss: float = 0.0):
     """Next-token LM loss. batch: {"tokens": [B,T]} (targets = shift) or
-    {"inputs","targets"[,"mask"]}."""
+    {"inputs","targets"[,"mask"]}.
+
+    For MoE models the loss adds ``router_aux_weight`` times the router's
+    load-balance loss; the metrics report it as ``router_aux`` and
+    ``loss`` is the total (``perplexity`` stays the cross-entropy's)."""
     if "inputs" in batch:
         inp, tgt = batch["inputs"], batch["targets"]
         mask = batch.get("mask")
@@ -639,24 +652,32 @@ def lm_loss(params, batch, config: TransformerConfig, *, mesh=None,
         if mask is not None:
             mask = mask[:, 1:]
     if config.loss_chunk <= 0:
-        logits = forward(params, inp, config, mesh=mesh)
-        return cross_entropy_loss(logits, tgt, mask=mask, z_loss=z_loss)
-    if config.ce_impl not in ("fused", "checkpoint"):
-        raise ValueError(
-            f"ce_impl must be 'fused' or 'checkpoint', got {config.ce_impl!r}")
-    x = forward(params, inp, config, mesh=mesh, return_hidden=True)
-    head = _head(params, config)
-    if config.ce_impl == "checkpoint":
-        return chunked_ce_loss(x, head, tgt, mask=mask, z_loss=z_loss,
-                               chunk=config.loss_chunk,
-                               accuracy=config.ce_accuracy)
-    B, T, D = x.shape
-    mf = (mask.reshape(-1).float() if mask is not None
-          else torch.ones((B * T,), dtype=torch.float32, device=x.device))
-    loss, acc = fused_chunked_ce_loss(
-        x.reshape(B * T, D), head, tgt.reshape(-1), mf, float(z_loss),
-        int(config.loss_chunk), bool(config.ce_accuracy))
-    return loss, {"loss": loss, "accuracy": acc, "perplexity": _perplexity(loss)}
+        logits, aux = forward(params, inp, config, mesh=mesh, return_aux=True)
+        loss, metrics = cross_entropy_loss(logits, tgt, mask=mask, z_loss=z_loss)
+    else:
+        if config.ce_impl not in ("fused", "checkpoint"):
+            raise ValueError(
+                f"ce_impl must be 'fused' or 'checkpoint', got {config.ce_impl!r}")
+        x, aux = forward(params, inp, config, mesh=mesh, return_aux=True,
+                         return_hidden=True)
+        head = _head(params, config)
+        if config.ce_impl == "checkpoint":
+            loss, metrics = chunked_ce_loss(x, head, tgt, mask=mask, z_loss=z_loss,
+                                            chunk=config.loss_chunk,
+                                            accuracy=config.ce_accuracy)
+        else:
+            B, T, D = x.shape
+            mf = (mask.reshape(-1).float() if mask is not None
+                  else torch.ones((B * T,), dtype=torch.float32, device=x.device))
+            loss, acc = fused_chunked_ce_loss(
+                x.reshape(B * T, D), head, tgt.reshape(-1), mf, float(z_loss),
+                int(config.loss_chunk), bool(config.ce_accuracy))
+            metrics = {"loss": loss, "accuracy": acc,
+                       "perplexity": _perplexity(loss)}
+    if config.n_experts > 0:
+        loss = loss + config.router_aux_weight * aux
+        metrics = dict(metrics, router_aux=aux, loss=loss)
+    return loss, metrics
 
 
 def _micro_weight(mb):
@@ -697,16 +718,19 @@ def make_train_step(config: TransformerConfig, optimizer, *, mesh=None,
     ``accum_steps > 1`` splits every batch leaf's leading dim into
     microbatches, accumulates their gradients in f32 weighted by each
     microbatch's valid-token count (so masked batches match the
-    unaccumulated step's per-token weighting), weights every metric the
-    same way, and applies the optimizer once. The optimizer updates the
-    parameters in place (ray_tpu_torch.ops.optim.FusedClipAdamW).
+    unaccumulated step's per-token weighting), weights every metric
+    (``router_aux`` too) the same way, and applies the optimizer once.
+
+    ``optimizer`` is the port's ``FusedClipAdamW`` (one pass: clip, AdamW
+    and the update) or any optax-style ``GradientTransformation`` (the
+    port's own in ray_tpu_torch.ops.optim): its ``update(grads,
+    opt_state, params)`` gives the updates, which are added to the
+    parameters. Either way the parameters are updated IN PLACE, so the
+    returned state holds the tensors of ``state["params"]`` (ray_tpu
+    returns new arrays).
     """
     _check_supported(config, mesh)
-    if not isinstance(optimizer, FusedClipAdamW):
-        raise NotImplementedError(
-            "the port's train step takes ray_tpu_torch.ops.optim.FusedClipAdamW; "
-            "the optax-style optimizer path (optimizer.update) is not ported "
-            "yet (ROADMAP.md §1 item 9)")
+    fused = isinstance(optimizer, FusedClipAdamW)
 
     grads_of = functools.partial(loss_and_grads, config=config, z_loss=z_loss)
 
@@ -739,8 +763,14 @@ def make_train_step(config: TransformerConfig, optimizer, *, mesh=None,
             metrics, grads = accumulated(params, batch)
         else:
             metrics, grads = grads_of(params, batch)
-        params, opt_state, gnorm = optimizer.apply(
-            tree_unflatten(params, grads), state["opt_state"], params)
+        grads = tree_unflatten(params, grads)
+        if fused:
+            params, opt_state, gnorm = optimizer.apply(grads, state["opt_state"],
+                                                       params)
+        else:
+            updates, opt_state = optimizer.update(grads, state["opt_state"], params)
+            params = apply_updates(params, updates)
+            gnorm = global_norm(grads)
         metrics = dict(metrics, grad_norm=gnorm)
         return {"params": params, "opt_state": opt_state,
                 "step": state["step"] + 1}, metrics
@@ -788,6 +818,9 @@ def decode_step(params, tokens, cache, config: TransformerConfig):
     """
     c = config
     _check_supported(c)
+    if c.n_experts > 0:  # as init_kv_cache: no cache is made for MoE
+        raise NotImplementedError(
+            "KV-cache decode for MoE models is not implemented yet")
     dt = c.compute_dtype
     _, S = tokens.shape
     pos0 = int(cache["pos"])

@@ -1,6 +1,8 @@
 """ray_tpu_torch.ops: attention (with the hand-written Hopper flash
 kernels, forward and backward) and the norm/rope/mlp building blocks;
-the fused clip+AdamW optimizer lives in ray_tpu_torch.ops.optim.
+MoE routing and the MoE FFN live in ray_tpu_torch.ops.moe, the
+optimizers (fused clip+AdamW and the optax-style transforms) in
+ray_tpu_torch.ops.optim.
 
 Port of ray_tpu.ops; ring attention arrives with the parallel slice.
 """

@@ -13,9 +13,10 @@ anything its kernel does not take; it allocates the outputs, launches on
 PyTorch's current stream, raises if the C function reports a CUDA error
 (there is no fallback to another kernel or to the plain version), and
 counts its launches in a plain int attribute (``flash_fwd.launches``,
-``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``). fp32 runs on the
-FMA units (``flash_fwd.cu``, ``flash_bwd.cu``); bf16/fp16 on wgmma
-kernels that read q, k, v and dO by TMA (``flash_fwd.cu``,
+``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``). fp32 runs on
+kernels for the FMA units (``flash_fwd.cu``, ``flash_bwd.cu``), whose
+launches each wrapper also counts apart (``launches_fp32``); bf16/fp16 on
+wgmma kernels that read q, k, v and dO by TMA (``flash_fwd.cu``,
 ``flash_bwd_dq.cu``, ``flash_bwd_dkv.cu``). TMA needs a 16-byte aligned
 base and strides that are multiples of 16 bytes (``tma_aligned``); an
 input that breaks the rule is copied first, and the copies are counted
@@ -221,10 +222,12 @@ def flash_fwd(q, k, v, *, causal: bool, return_lse: bool):
             b, h, tq, tk, d, _DTYPE_CODES[q.dtype], int(causal),
             1.0 / math.sqrt(d))
     flash_fwd.launches += 1
+    flash_fwd.launches_fp32 += q.dtype == torch.float32
     return o, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.launches_fp32 = 0
 flash_fwd.copies = 0
 
 
@@ -275,10 +278,12 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool):
             b, h, tq, tk, d, *dtype_code, int(causal),
             1.0 / math.sqrt(d))
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.launches_fp32 += q.dtype == torch.float32
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.launches_fp32 = 0
 flash_bwd_dq.copies = 0
 
 
@@ -307,8 +312,10 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool):
             b, h, tq, tk, d, *dtype_code, int(causal),
             1.0 / math.sqrt(d))
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.launches_fp32 += q.dtype == torch.float32
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches_fp32 = 0
 flash_bwd_dkv.copies = 0

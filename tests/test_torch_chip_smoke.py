@@ -1,5 +1,6 @@
 """chip_smoke.py's own yardsticks, on the CPU: the tolerance it holds the
-backward kernels to, and the pair count its bounds are built on."""
+backward kernels to, the pair count its bounds are built on, its kernels
+line, and phase 6's routing and f32 GEMM helpers."""
 
 import math
 
@@ -89,14 +90,23 @@ def test_attended_pairs_counts_the_mask(tq, tk, causal):
 
 
 def test_kernel_summary_names_sources_that_are_built():
-    """Every source chip_smoke's kernels line names is one the port builds,
-    and every kernel it names has a wrapper with a launch count."""
+    """Every source chip_smoke's kernels line names is one the port builds
+    and the one its wrapper routes that type to; every kernel it names has
+    a wrapper that counts its launches and its fp32 launches, and each
+    (wrapper, type) has one entry."""
     from ray_tpu_torch.ops import _kernels
 
-    assert set(chip_smoke._KERNEL_SOURCES.values()) <= set(_kernels.SOURCES)
-    assert set(chip_smoke._REPLACES) == set(chip_smoke._KERNEL_SOURCES)
-    for name in chip_smoke._KERNEL_SOURCES:
-        assert isinstance(getattr(_kernels, name).launches, int), name
+    kernels = chip_smoke._KERNELS
+    assert {source for _, _, source, _ in kernels.values()} <= set(_kernels.SOURCES)
+    assert len({(w, fp32) for w, fp32, _, _ in kernels.values()}) == len(kernels)
+    for name, (wrapper, fp32, source, line) in kernels.items():
+        w = getattr(_kernels, wrapper)
+        assert isinstance(w.launches, int) and isinstance(w.launches_fp32, int), name
+        assert line in (144, 298, 332), name
+        if wrapper != "flash_fwd":
+            dtype = torch.float32 if fp32 else torch.bfloat16
+            assert _kernels._backward_route(wrapper.rsplit("_", 1)[1], dtype)[0] == source
+    assert chip_smoke._launch_counts().keys() == kernels.keys()
 
 
 def test_copy_check_covers_every_counting_wrapper():
@@ -107,3 +117,61 @@ def test_copy_check_covers_every_counting_wrapper():
     counting = {name for name, obj in vars(_kernels).items()
                 if callable(obj) and hasattr(obj, "copies")}
     assert counting == set(chip_smoke._COPYING)
+
+
+def test_routing_comparison_counts_tokens_routed_differently():
+    """Phase 6's routing comparison: zero when the two routings agree; one
+    when a single token is sent to other experts (two of its E entries
+    change), whatever the devices of the two."""
+    from ray_tpu_torch.ops import moe
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 64, 16), generator=g)
+    router = torch.randn((16, 8), generator=g)
+    kept = moe.route(x, router, top_k=2)[1].sum(-1) > 0  # [n, g, E]
+    assert kept.shape == (1, 128, 8) and int(kept.sum(-1).max()) == 2
+    assert chip_smoke._routing_mismatches(kept, kept.clone()) == 0
+    flipped = kept.clone()
+    flipped[0, 37] = flipped[0, 37].roll(1)  # token 37: other experts
+    assert int((flipped != kept).sum()) >= 2
+    assert chip_smoke._routing_mismatches(flipped, kept) == 1
+
+
+def test_model_routing_reads_every_moe_layer():
+    """Phase 6's routing probe: one bool [n, g, E] per MoE layer, each
+    token kept by at most top_k experts; the probe leaves the model's
+    moe_swiglu in place and its output unchanged."""
+    from ray_tpu_torch import models
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.ops import moe
+
+    cfg = models.tiny_moe(dtype="float32", attn_impl="reference")
+    params = models.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = models.forward(params, tokens, cfg)
+    kept = chip_smoke._model_routing(params, tokens, cfg)
+    assert transformer.moe_swiglu is moe.moe_swiglu
+    assert len(kept) == cfg.n_layers
+    for k in kept:
+        assert k.shape == (1, 80, cfg.n_experts) and k.dtype == torch.bool
+        assert 0 < int(k.sum()) and int(k.sum(-1).max()) <= cfg.expert_top_k
+    assert chip_smoke._routing_mismatches(kept[0], kept[1]) > 0
+    with torch.no_grad():
+        assert torch.equal(models.forward(params, tokens, cfg), want)
+
+
+@pytest.mark.parametrize("name,f32", [
+    ("sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize64x64x8_stage3_warpsize1x4x1_ffma_", True),
+    ("void cutlass::Kernel2<cutlass_80_simt_sgemm_128x128_8x4_nt_align1>(cutlass_80_si", True),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64_warpgroupsize1x1x1_execute_segment_k_off_kernel__5x_cublas", False),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>>", False),
+    ("void (anonymous namespace)::flash_bwd_dkv_fp32_kernel<64>(Args)", False),
+])
+def test_f32_gemm_names(name, f32):
+    """The profile's f32 GEMM sum takes cuBLAS's and CUTLASS's f32 FMA
+    GEMMs (the first two names as an H100 profile of moe_small's step
+    shows them, cut to 80 characters) and no bf16 GEMM, elementwise or
+    flash kernel."""
+    assert chip_smoke._is_f32_gemm(name) is f32

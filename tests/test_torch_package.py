@@ -24,10 +24,11 @@ names = [m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__,
                                                "ray_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+missing = sorted({"ray_tpu_torch.ops.moe", "ray_tpu_torch.ops.optim"} - set(sys.modules))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "ray_tpu"
              or m.startswith("ray_tpu."))
-print(len(names), bad)
+print(len(names), missing, bad)
 """
 
 
@@ -36,8 +37,9 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n_modules, bad = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 12
+    n_modules, missing, bad = out.stdout.split(" ", 2)
+    assert int(n_modules) >= 13
+    assert missing == "[]"  # the MoE ops and the optimizers were imported
     assert bad.strip() == "[]"
 
 

@@ -5,7 +5,8 @@ same numpy batches.
 
 Tolerances: gradients of the losses agree to 1e-4 (the JAX suite's,
 test_models.py) — both frameworks compute in float32 and differ only in
-the order of their sums; the optimizer to 1e-7 over 4 steps
+the order of their sums; the optimizers (FusedClipAdamW against ray_tpu's,
+the optax-style transforms against optax) to 1e-7 over 4 steps
 (test_models.py's optax parity); the train steps to 1e-5 in loss and
 grad_norm (relative) and 1e-5 in the parameters after 3 AdamW steps.
 AdamW divides each gradient component by its own magnitude plus eps, so
@@ -22,6 +23,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -29,6 +31,7 @@ from ray_tpu.models import transformer as J
 from ray_tpu.ops.optim import FusedClipAdamW as JFused
 from ray_tpu_torch.interop import params_from_jax
 from ray_tpu_torch.models import transformer as T
+from ray_tpu_torch.ops import optim
 from ray_tpu_torch.ops.optim import FusedClipAdamW
 from ray_tpu_torch.ops.tree import tree_leaves, tree_unflatten
 
@@ -173,6 +176,63 @@ def test_fused_clip_adamw_mu_dtype_and_no_clip():
     assert float(params["b"]["x"].abs().sum()) == 0.0
 
 
+OPTAX_PAIRS = {
+    "sgd": lambda o: o.sgd(1e-2),
+    "sgd_momentum": lambda o: o.sgd(1e-2, momentum=0.9),
+    "sgd_nesterov": lambda o: o.sgd(1e-2, momentum=0.9, nesterov=True),
+    "adam": lambda o: o.adam(1e-3, eps_root=1e-8),
+    "adamw": lambda o: o.adamw(1e-3, weight_decay=0.1),
+    "clip_by_global_norm": lambda o: o.clip_by_global_norm(1.0),
+    "chain_clip_adamw": lambda o: o.chain(o.clip_by_global_norm(1.0),
+                                          o.adamw(3e-4, weight_decay=0.1)),
+}
+
+
+def _state_leaves(state):
+    """The tensors of an optax or port optimizer state, in order."""
+    if isinstance(state, dict):
+        for v in state.values():
+            yield from _state_leaves(v)
+    elif isinstance(state, tuple):  # chain's tuple and the NamedTuple states
+        for v in state:
+            yield from _state_leaves(v)
+    else:
+        yield np.asarray(state.numpy() if isinstance(state, torch.Tensor) else state)
+
+
+@pytest.mark.parametrize("name", sorted(OPTAX_PAIRS))
+def test_optax_style_transform_matches_optax(gpt2_params, name):
+    """4 updates from the same gradients, alternating below and above the
+    clip: the updates, the parameters after apply_updates and every state
+    leaf (count int32 included) agree with optax's to 1e-7. optax runs
+    eagerly, one rounding per operation as in the port (under jit XLA
+    fuses (1-b)·g + b·t into one FMA, an ulp away: 1.2e-7 at |p| = 1)."""
+    jp, _ = gpt2_params
+    host = jax.device_get(jp)
+    tp = params_from_jax(host, device="cpu")
+    jopt, topt = OPTAX_PAIRS[name](optax), OPTAX_PAIRS[name](optim)
+    js, ts = jopt.init(jp), topt.init(tp)
+    rng = np.random.default_rng(6)
+    jparams = jp
+    for i in range(4):
+        scale = 3.0 if i % 2 else 0.01
+        g = jax.tree.map(lambda x: (rng.standard_normal(x.shape) * scale
+                                    ).astype(np.float32), host)
+        ju, js = jopt.update(jax.tree.map(jnp.asarray, g), js, jparams)
+        jparams = optax.apply_updates(jparams, ju)
+        tu, ts = topt.update(params_from_jax(g, device="cpu"), ts, tp)
+        assert optim.apply_updates(tp, tu) is tp  # updated in place
+        _assert_trees_close(ju, tu, atol=1e-7)
+        _assert_trees_close(jparams, tp, atol=1e-7)
+    jleaves, tleaves = list(_state_leaves(js)), list(_state_leaves(ts))
+    assert len(jleaves) == len(tleaves)
+    for a, b in zip(jleaves, tleaves):
+        assert a.dtype == b.dtype
+        np.testing.assert_allclose(b, a, atol=1e-7, rtol=0)
+    np.testing.assert_allclose(float(optim.global_norm(tp)),
+                               float(optax.global_norm(jparams)), rtol=1e-6)
+
+
 # -- the train step against the JAX step, 3 steps ----------------------------
 
 def _uneven_mask():
@@ -182,12 +242,15 @@ def _uneven_mask():
     return mask
 
 
-def _assert_steps_match_jax(jc, tc, batch, accum_steps=1):
+def _assert_steps_match_jax(jc, tc, batch, accum_steps=1, opts=None):
     """3 steps of the JAX and the port's train step from the same
-    parameters: loss and grad_norm each step, the parameters after."""
-    jopt = JFused(learning_rate=1e-3, eps=1e-6, weight_decay=0.1, clip_norm=1.0)
-    topt = FusedClipAdamW(learning_rate=1e-3, eps=1e-6, weight_decay=0.1,
-                          clip_norm=1.0)
+    parameters: loss and grad_norm each step, the parameters after.
+    ``opts`` is a (JAX, port) optimizer pair, FusedClipAdamW's by
+    default."""
+    jopt, topt = opts or (
+        JFused(learning_rate=1e-3, eps=1e-6, weight_decay=0.1, clip_norm=1.0),
+        FusedClipAdamW(learning_rate=1e-3, eps=1e-6, weight_decay=0.1,
+                       clip_norm=1.0))
     jstate = jax.jit(lambda key: J.init_train_state(key, jc, jopt))(
         jax.random.PRNGKey(0))
     tp = params_from_jax(jax.device_get(jstate["params"]), device="cpu")
@@ -222,6 +285,22 @@ def test_accumulated_remat_step_matches_jax(arch, policy):
                       remat_policy=policy)
     batch = {"tokens": _tokens(4, 33), "mask": _uneven_mask()}
     _assert_steps_match_jax(jc, tc, batch, accum_steps=2)
+
+
+STEP_OPTIMIZERS = {
+    "chain_clip_adamw": lambda o: o.chain(o.clip_by_global_norm(1.0),
+                                          o.adamw(1e-3, eps=1e-6, weight_decay=0.1)),
+    "sgd": lambda o: o.sgd(1e-1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(STEP_OPTIMIZERS))
+def test_optax_style_train_step_matches_jax(name):
+    """The optimizer.update path: the port's transform in the port's step
+    against optax's in ray_tpu's, 3 steps."""
+    jc, tc = _configs(loss_chunk=48)
+    opts = tuple(STEP_OPTIMIZERS[name](o) for o in (optax, optim))
+    _assert_steps_match_jax(jc, tc, {"tokens": _tokens(4, 33)}, opts=opts)
 
 
 def test_grad_accumulation_matches_full_batch():
@@ -289,11 +368,19 @@ def test_unstacked_layers_give_one_stacked_gradient(gpt2_params):
 
 
 def test_train_step_refuses_what_is_not_ported():
+    """mesh= is still refused (parallel/ is not ported); MoE configs and
+    optax-style optimizers are accepted."""
     _, tc = _configs()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        T.make_train_step(tc, object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(NotImplementedError, match="mesh.*item 3"):
         T.make_train_step(tc, FusedClipAdamW(), mesh=object())
+    with pytest.raises(NotImplementedError, match="item 3"):
+        T.make_train_step(T.tiny_moe(), optim.sgd(1e-2), mesh=object())
+    moe = T.tiny_moe(remat=False)
+    opt = optim.chain(optim.clip_by_global_norm(1.0), optim.adamw(1e-3))
+    state = T.init_train_state(torch.Generator().manual_seed(0), moe, opt, device="cpu")
+    state, metrics = T.make_train_step(moe, opt)(state, {"tokens": _tokens(2, 9)})
+    assert int(state["step"]) == 1 and int(state["opt_state"][1][0].count) == 1
+    assert np.isfinite(float(metrics["loss"])) and float(metrics["router_aux"]) > 0.0
 
 
 def test_train_step_learns_on_cpu():

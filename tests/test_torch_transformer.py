@@ -111,12 +111,18 @@ def test_params_from_jax_is_bit_exact_for_bf16():
 
 
 def test_moe_and_mesh_are_refused():
+    """mesh= is still refused (parallel/ is not ported); MoE models now run
+    forward, and only their KV-cache decode is refused, as in ray_tpu."""
     tc = T.tiny_moe()
     tp = T.init_params(torch.Generator().manual_seed(0), tc, device="cpu")
     assert T.TransformerConfig(**dataclasses.asdict(J.tiny_moe())).num_params() \
         == J.tiny_moe().num_params()
-    with pytest.raises(NotImplementedError):
-        T.forward(tp, torch.zeros((1, 4), dtype=torch.long), tc)
-    with pytest.raises(NotImplementedError):
-        T.forward(tp, torch.zeros((1, 4), dtype=torch.long), T.tiny(),
-                  mesh=object())
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    with torch.no_grad():
+        logits, aux = T.forward(tp, tokens, tc, return_aux=True)
+    assert logits.shape == (1, 4, tc.vocab_size) and bool(logits.isfinite().all())
+    assert float(aux) > 0.0
+    with pytest.raises(NotImplementedError, match="MoE"):
+        T.init_kv_cache(tc, 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 3"):
+        T.forward(tp, tokens, T.tiny(), mesh=object())

@@ -50,8 +50,12 @@ counts set to 0 just before it and read just after; launches made in
 phase 2 do not count. No path may make the wrappers copy an input (the
 model's q, k, v are views that TMA reads in place). The kernels line
 sums the launches of phases 3-6, one entry for each kernel: a wrapper
-sends fp32 to an FMA kernel and bf16/fp16 to a wgmma kernel, and counts
-the two apart.
+sends bf16/fp16 to a wgmma kernel and fp32 to a kernel of its own (the
+forward on the FMA units, the backward passes in 3xTF32 on the tensor
+cores), and counts the two apart. Phase 2 also requires two launches of
+the fp32 backward kernels to give bitwise-equal gradients, the bf16
+dK/dV kernel alone and the fp32 dQ + dK/dV pair to take no longer than
+SDPA's whole backward at GPT-2 124M's training shape.
 
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
@@ -69,23 +73,37 @@ import time
 
 import torch
 
-# Published peaks (NVIDIA data sheets, dense): memory bytes/s and
-# operations/s by input type. fp32 runs on the FMA units, not TF32.
+# Published peaks (NVIDIA data sheets, dense): memory bytes/s,
+# operations/s by input type (fp32 on the FMA units, outside the tensor
+# cores), and the tensor cores' TF32 rate. The fp32 attention kernels run
+# in 3xTF32 (three TF32 products per fp32 product), the f32 GEMMs of
+# torch's products on the FMA units.
 _PEAKS = (
     ("H100 PCIe", 2.0e12, {torch.bfloat16: 756e12, torch.float16: 756e12,
-                           torch.float32: 51e12}),
+                           torch.float32: 51e12}, 378e12),
     ("H100 NVL", 3.9e12, {torch.bfloat16: 835e12, torch.float16: 835e12,
-                          torch.float32: 60e12}),
+                          torch.float32: 60e12}, 417.5e12),
     ("H100", 3.35e12, {torch.bfloat16: 989e12, torch.float16: 989e12,
-                       torch.float32: 67e12}),
+                       torch.float32: 67e12}, 495e12),
 )
 
 
 def _peaks(name: str):
-    for key, bw, flops in _PEAKS:
+    """(memory bytes/s, {dtype: operations/s}, TF32 operations/s) of a card."""
+    for key, bw, flops, tf32 in _PEAKS:
         if key in name:
-            return bw, flops
+            return bw, flops, tf32
     raise SystemExit(f"no published peaks on file for {name!r}")
+
+
+def _ops_ms(ops, dtype, card):
+    """Least time of ``ops`` attention operations in ``dtype`` and what it
+    is bound by: fp32 runs in 3xTF32, three TF32 operations on the tensor
+    cores for each one; bf16/fp16 at their own rate."""
+    _, flops, tf32 = _peaks(card)
+    if dtype == torch.float32:
+        return 3 * ops / tf32 * 1e3, "operations (3xTF32)"
+    return ops / flops[dtype] * 1e3, "operations"
 
 
 def _time_ms(fn, *, iters: int = 20, flush=None) -> float:
@@ -144,13 +162,12 @@ def _attended_pairs(tq, tk, causal):
 
 
 def _attention_bound_ms(b, t, h, d, dtype, causal, card):
-    bw, flops = _peaks(card)
     esize = torch.empty((), dtype=dtype).element_size()
     nbytes = 4 * b * t * h * d * esize + b * h * t * 4  # q,k,v in; O, LSE out
     pairs = t * (t + 1) // 2 if causal else t * t
-    ops = 4 * b * h * d * pairs
-    t_bytes, t_ops = nbytes / bw * 1e3, ops / flops[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    t_bytes = nbytes / _peaks(card)[0] * 1e3
+    t_ops, by = _ops_ms(4 * b * h * d * pairs, dtype, card)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else by)
 
 
 def _attention_bwd_bound_ms(b, tq, tk, h, d, dtype, causal, card, *, dq: bool):
@@ -159,19 +176,26 @@ def _attention_bwd_bound_ms(b, tq, tk, h, d, dtype, causal, card, *, dq: bool):
     and does 3 products of length D per attended pair (S, dP, dQ: 6*D
     operations), the dK/dV pass writes dK and dV and does 4 (S, dP, dV,
     dK: 8*D)."""
-    bw, flops = _peaks(card)
     esize = torch.empty((), dtype=dtype).element_size()
     q_bytes, kv_bytes = b * tq * h * d * esize, b * tk * h * d * esize
     reads = 2 * q_bytes + 2 * kv_bytes + 2 * b * h * tq * 4
     nbytes = reads + (q_bytes if dq else 2 * kv_bytes)
-    ops = (6 if dq else 8) * b * h * d * _attended_pairs(tq, tk, causal)
-    t_bytes, t_ops = nbytes / bw * 1e3, ops / flops[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    t_bytes = nbytes / _peaks(card)[0] * 1e3
+    t_ops, by = _ops_ms((6 if dq else 8) * b * h * d * _attended_pairs(tq, tk, causal),
+                        dtype, card)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else by)
+
+
+def _pair_no_slower_than_library(row) -> bool:
+    """Whether a phase-2 backward row's dQ and dK/dV kernels together take
+    no longer than the library's whole backward (SDPA's, for the same dO)
+    timed in the same run."""
+    return row["ms_dq"] + row["ms_dkv"] <= row["library_ms"]
 
 
 # Tolerances of the kernel against its plain version.
-#  fp32: only the summation order differs (64-key tiles and WMMA-free FMA
-#        in the kernel, 256-key blocks and a matmul in the plain version).
+#  fp32: only the summation order differs (64-key tiles and FMA sums in
+#        the kernel, 256-key blocks and a matmul in the plain version).
 #  bf16/fp16: p is rounded to the input type per tile, relative to the
 #        running max at that tile, and the tiles differ (64 vs 256 keys).
 _TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 1e-3),
@@ -242,9 +266,12 @@ def phase_kernels(card: str):
 # first keys' dK and dV are many times the typical value.
 #  rtol: both sides round an f32 result to the output type, so an
 #        element may differ by an ulp of its value: 2^-7 of it (bf16),
-#        2^-10 (fp16); fp32 sums in another order (64-row tiles and FMA
-#        sums in the kernels, 256-row blocks and matmuls in the plain
-#        version).
+#        2^-10 (fp16); fp32 sums in another order (64- or 16-row tiles in
+#        the kernels, 256-row blocks and matmuls in the plain version)
+#        and takes each product in 3xTF32 (hi.lo + lo.hi + hi.hi of the
+#        TF32 halves of each operand), which drops ~2^-22 of each term:
+#        the order of fp32's own rounding. TF32 alone (hi.hi) misses the
+#        tile limit more than tenfold (tests/test_torch_fp32_split.py).
 #  atol, tile: the tensor cores take p and dS rounded to the input type
 #        where the plain version forms dV and dK from f32 p and dS; each
 #        term of those sums moves by up to half an ulp, an error that
@@ -302,7 +329,9 @@ def phase_kernels_bwd(card: str):
     # (B, Tq, Tk, H, D, dtype, causal): the training shape of GPT-2 124M
     # in every type, moe_small's in both of its types, a long head_dim-128
     # shape, ragged T of 100 and 200 in both head dims, and a causal
-    # Tq < Tk case whose last key tiles meet no query.
+    # Tq < Tk case whose last key tiles meet no query; the last two shapes
+    # in fp32 too (the fp32 dK/dV pass's zero store for such a tile, and
+    # its head_dim-128 inner tiles under causal masks).
     cases = [(8, 1024, 1024, 12, 64, dt, causal)
              for causal in (True, False)
              for dt in (torch.bfloat16, torch.float16, torch.float32)]
@@ -312,8 +341,11 @@ def phase_kernels_bwd(card: str):
               (1, 100, 100, 4, 128, torch.float32, False),
               (2, 200, 200, 4, 64, torch.float16, False),
               (1, 200, 200, 4, 128, torch.float16, True),
-              (2, 64, 200, 4, 64, torch.bfloat16, True)]
+              (2, 64, 200, 4, 64, torch.bfloat16, True),
+              (1, 200, 200, 4, 128, torch.float32, True),
+              (2, 64, 200, 4, 64, torch.float32, True)]
     results = []
+    repeated = False  # the fp32 run-to-run check is made once
     for b, tq, tk, h, d, dt, causal in cases:
         # q as the model makes it (a strided view of the fused projection),
         # k and v strided views of one [B, Tk, H, 2D] tensor.
@@ -329,6 +361,17 @@ def phase_kernels_bwd(card: str):
         if tq % blocks["block_q"] or tk % blocks["block_k"]:
             blocks = dict(block_q=tq, block_k=tk)
         plain = flash_backward_plain(q, k, v, o, lse, do, causal=causal, **blocks)
+        if dt == torch.float32 and not repeated:
+            # The two-pass split has no atomics: a second launch of each
+            # fp32 kernel gives the same bits.
+            again = (flash_bwd_dq(q, k, v, do, lse, delta, causal=causal),
+                     *flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal))
+            repeated = all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again))
+            _check(repeated, f"two launches of the fp32 backward kernels differ at "
+                             f"{[b, tq, tk, h, d]} causal={causal}")
+            print(f"[kernels] flash_bwd fp32 {[b, tq, tk, h, d]} causal={causal}: "
+                  f"two launches bitwise equal")
+            del again
         torch.cuda.synchronize()
         errs = {name: _grad_error(got, ref, dt)
                 for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), plain)}
@@ -849,8 +892,10 @@ def phase_moe(card: str):
 # ray_tpu_torch.ops._kernels that launches it, whether it is the fp32
 # kernel, the source under ray_tpu_torch/csrc that holds it, the line of
 # ray_tpu/ops/attention.py holding the TPU kernel it replaces). Each
-# wrapper sends fp32 to an FMA kernel and bf16/fp16 to a wgmma kernel,
-# and counts its fp32 launches apart (``launches_fp32``).
+# wrapper sends bf16/fp16 to a wgmma kernel and fp32 to a kernel of its
+# own (the forward's on the FMA units, the backward passes' on the
+# tensor cores in 3xTF32), and counts its fp32 launches apart
+# (``launches_fp32``).
 _KERNELS = {
     "flash_fwd": ("flash_fwd", False, "flash_fwd.cu", 144),
     "flash_fwd_fp32": ("flash_fwd", True, "flash_fwd.cu", 144),
@@ -895,6 +940,11 @@ def main() -> int:
     _check(bwd_row["ms_dkv"] <= bwd_row["library_ms"],
            f"the dK/dV kernel ({bwd_row['ms_dkv']} ms) is slower than SDPA's whole "
            f"backward ({bwd_row['library_ms']} ms) at GPT-2 124M's training shape")
+    bwd_row = _case(bwd_rows, [8, 1024, 1024, 12, 64], "float32")
+    _check(_pair_no_slower_than_library(bwd_row),
+           f"the fp32 dQ + dK/dV kernels ({bwd_row['ms_dq']} + {bwd_row['ms_dkv']} ms) "
+           f"are slower than SDPA's fp32 backward ({bwd_row['library_ms']} ms) at "
+           f"GPT-2 124M's training shape")
 
     from ray_tpu_torch.ops import _kernels
 
@@ -954,7 +1004,8 @@ def main() -> int:
             "source": f"ray_tpu_torch/csrc/{source}",
             "replaces": f"ray_tpu/ops/attention.py:{line}",
             "launches": launches[kname], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by.split()[0],  # "bytes" or "operations"
             "library_ms": library_ms})
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

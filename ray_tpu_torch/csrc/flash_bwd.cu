@@ -1,6 +1,6 @@
 // Flash-attention backward for float32 inputs, for Hopper (sm_90a): the
-// dQ pass and the dK/dV pass on the FMA units. The bf16/fp16 passes are
-// flash_bwd_dq.cu and flash_bwd_dkv.cu (wgmma, TMA).
+// dQ pass and the dK/dV pass, every product on the tensor cores in
+// 3xTF32. The bf16/fp16 passes are flash_bwd_dq.cu and flash_bwd_dkv.cu.
 //
 // Counterparts of ray_tpu/ops/attention.py:_flash_bwd_dq_kernel and
 // _flash_bwd_dkv_kernel (the Pallas TPU kernels launched by
@@ -11,336 +11,741 @@
 //   dP = dO . v^T
 //   dS = p * (dP - delta) * scale
 //   dQ = sum_k dS . k,  dV = sum_q p^T . dO,  dK = sum_q dS^T . q
-// in full fp32 throughout, as the reference computes it: a TF32 product
-// would not match it, and wgmma has no fp32 form. delta is computed
-// outside the kernels, as in the reference
-// (ray_tpu_torch/ops/attention.py:_flash_backward).
+// in fp32, with p and dS unrounded as in the reference and exp as expf
+// (no ex2.approx). delta is computed outside the kernels, as in the
+// reference (ray_tpu_torch/ops/attention.py:_flash_backward).
+//
+// fp32 on the tensor cores. TF32 keeps 10 of fp32's 23 mantissa bits, so
+// one TF32 product misses the fp32 result by up to 2^-11 of it. Every fp32
+// value x is split once into hi = tf32(x) and lo = tf32(x - hi)
+// (cvt.rna: nearest, ties away), and every product a.b is taken as
+// hi_a.lo_b + lo_a.hi_b + hi_a.hi_b: three mma.sync.m16n8k8 TF32 products
+// into fresh f32 accumulators, the small terms first. What this drops
+// (lo.lo and the rounding of each lo) is about 2^-22 of |a.b|, the order
+// of fp32's own rounding over a 64-term sum. The tensor cores' f32
+// accumulation truncates, each product at an ulp of the sum it adds to:
+// one chain over a whole 64-deep product with the three products of each
+// step in turn missed the fp32 tile limit on an H100. So the products of
+// every kChain = 2 steps of 8 start from zero, the four small ones first
+// (they truncate at an ulp of a small sum), then the two large ones, and
+// the chain is added to the running sum with an f32 add, which rounds to
+// nearest.
 //
 // What bounds it on this card. Per attended (q, k) pair and (batch, head)
 // the dQ pass does 3 products of length D (6*D operations), the dK/dV
-// pass 4 (8*D), against q, k, v, dO read once and the gradients written
-// once. At GPT-2 124M's training shape (B=8, T=1024, H=12, D=64, causal)
-// in fp32 that is ~19 and ~26 GFLOP, 0.29 and 0.39 ms at the FMA units'
-// 67 TFLOP/s, far above the bytes' ~40 us: the FMA units bound both.
+// pass 4 (8*D), each three times in 3xTF32, against q, k, v, dO read once
+// and the gradients written once. At GPT-2 124M's training shape (B=8,
+// T=1024, H=12, D=64, causal) that is 3 x 1.93e10 and 3 x 2.58e10
+// operations, 0.117 and 0.156 ms at the 495 TFLOP/s dense TF32 peak, above
+// the bytes' ~0.04 ms: the tensor cores bound both.
 //
-// The design is the first port's. It keeps the O(T^2) p and dS out of
-// device memory, reads q/k/v/dO in their public [B, T, H, D] layout
-// through strides, skips the tiles the causal mask empties, and keeps the
-// TPU kernels' two-pass split, so no atomics: gradients come out the same
-// from run to run. The TPU grids carried the dQ accumulator across a
-// sequential key axis and the dK/dV accumulators across a sequential
-// query axis, in VMEM scratch; Hopper runs blocks in no order. So one
-// block of 4 warps per (batch*head, 64-row query tile) loops over 64-key
-// tiles for dQ, and one block per (batch*head, 64-key tile) loops over
-// 64-row query tiles for dK and dV; each warp owns 16 rows of the block's
-// tile and keeps its accumulators in registers. Tiles are loaded with
-// scalar, synchronous loads into odd-pitched shared memory (the products
-// read its columns); S and dP go through shared memory for the
-// elementwise step. Ragged edges (T not a multiple of 64) are masked in
-// the kernel; a causal key tile that lies beyond every query (Tq < Tk)
-// runs no iteration and writes zeros.
+// The design. The TPU kernels' two-pass split, so no atomics and the same
+// gradients from run to run: one block of 8 warps per (batch*head, 64-row
+// tile of its own axis), looping over tiles of the other axis at or below
+// the causal diagonal; the dQ pass owns query rows and loops over key
+// tiles (heaviest causal rows first), the dK/dV pass owns keys and loops
+// over query tiles (key tile 0 first). Warps w and w + 4 own the same 16
+// rows and take one half each of every inner tile, each summing its own
+// part of the gradient in registers; at the end the two parts meet in
+// shared memory and are added in a fixed order (half 0 + half 1) before
+// 16-byte stores. Two warps a scheduler hide each other's latencies.
+//  - Copies. One thread issues TMA loads (4-D maps over the public
+//    [B, T, H, D] layout, 128-byte swizzle, 32-column boxes, zeros past
+//    T); an mbarrier per stage reports each. The block's own two tiles
+//    land once; the inner tiles (k, v for dQ; q, dO and their LSE, delta
+//    for dK/dV) come through a ring of 2 stages, so the next tile's copy
+//    runs under this tile's products. One __syncthreads a tile.
+//  - Split once. A tile lands raw in its hi plane; the threads split it in
+//    place, hi over the raw value and lo into the plane beside it. The
+//    next inner tile is split by each warp as it finishes its products on
+//    the current one, before the tile's one barrier.
+//  - Layout. A tile is D / 32 atoms of rows x 32 floats (128 bytes a row),
+//    the 16-byte chunk c of row r at c ^ (r % 8), as TMA's 128-byte
+//    swizzle writes it. The products read tiles two ways: along rows
+//    (ldmatrix.x4, which hands each thread word t of row g, the TF32
+//    fragment pattern) and along columns for the B operands of dQ = dS.k,
+//    dV = p^T.dO and dK = dS^T.q (scalar loads of rows 2t and 2t+1,
+//    column g). The XOR swizzle keeps both free of bank conflicts; a
+//    padded pitch would serve only one.
+//  - Accumulators as operands. The S (or dP) accumulator of an 8-column
+//    block holds columns 2t and 2t+1 of rows g, g+8: read as the A
+//    fragment of the next product, its column t stands for column 2t and
+//    t+4 for 2t+1, so the B rows are read in that order (2t, 2t+1). No
+//    shuffle; p and dS are split once per element in registers.
+//  - Masks only on diagonal and ragged tiles; a causal key tile past
+//    every query (Tq < Tk) runs no iteration and writes zeros.
+//
+// Sizes (python3 -m ray_tpu_torch.kernel_report gives registers and
+// spills). D = 64: own tile 64 rows, inner tiles 64 rows (32 a warp);
+// shared memory 4 planes of 16 KB for the own tiles + 2 stages x 4 planes
+// of 16 KB = 192 KB, so one block of 8 warps on an SM. D = 128: own tile
+// 64 rows (4 planes of 32 KB), inner tiles 16 rows (8 a warp; 2 stages x
+// 4 planes of 8 KB), 192 KB, one block of 8 warps on an SM. The bound at
+// D = 128 is the same max(bytes, 3 x operations / 495 TFLOP/s).
 //
 // Built by ray_tpu_torch/ops/_kernels.py with nvcc into a shared library
 // with a plain C interface; every launch returns cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <climits>
-#include <cstddef>
+#include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kTile = 64;                      // rows of a block's tile and of the inner tiles
-constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = kTile / kWarps;   // 16 rows a warp
+constexpr int kOuter = 64;  // rows of a block's own tile: 16 a warp
+constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kLdS = kTile + 4;                // pitch of the f32 S and dP tiles
+constexpr int kSplit = kWarps / 4;  // warps sharing 16 rows, each taking 1/kSplit of a tile
+constexpr int kChain = 2;  // 8-deep steps whose products share fresh accumulators
+constexpr int kStages = 2;  // the ring of inner tiles
 
-constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
-
-// Shared-memory layout, the same for both passes: four input tiles
-// (q, dO, k, v), the f32 S and dP tiles of the four warps, and the 64
-// rows' LSE and delta. The products read columns of the input tiles, so
-// their pitch is odd, which staggers rows across banks.
+// Rows of an inner tile by head_dim: two stages of four planes must fit
+// beside the own tiles' four planes in a block's 227 KB.
 template <int D>
-struct Layout {
-  static constexpr int kLdX = D + 1;
-  static constexpr size_t kTileBytes = align128(sizeof(float) * kTile * kLdX);
-  static constexpr size_t kQ = 0;
-  static constexpr size_t kDO = kTileBytes;
-  static constexpr size_t kK = 2 * kTileBytes;
-  static constexpr size_t kV = 3 * kTileBytes;
-  static constexpr size_t kS = 4 * kTileBytes;
-  static constexpr size_t kDP = kS + align128(sizeof(float) * kTile * kLdS);
-  static constexpr size_t kStats = kDP + align128(sizeof(float) * kTile * kLdS);
-  static constexpr size_t kBytes = kStats + 2 * kTile * sizeof(float);
+constexpr int inner_rows() {
+  return D == 64 ? 64 : 16;
+}
+
+// Shared memory, every plane 1024-byte aligned (the swizzle's period):
+// the own tiles (q, dO for dQ; k, v for dK/dV) as X hi, X lo, Y hi, Y lo;
+// kStages stages of the inner tiles in the same four planes; per stage
+// the inner rows' LSE and delta (dK/dV); the barriers (own tiles, then
+// one per stage). After the loop the planes hold the epilogue's partial
+// sums: per output [kSplit][kOuter][D + 8] f32 (a pitch of D + 8 keeps
+// the warps' 8-byte stores free of bank conflicts).
+template <int D>
+struct Smem {
+  static constexpr int kInner = inner_rows<D>();
+  static constexpr int kOuterPlane = kOuter * D * 4;
+  static constexpr int kInnerPlane = kInner * D * 4;
+  static constexpr int kStage0 = 4 * kOuterPlane;
+  static constexpr int kStageBytes = 4 * kInnerPlane;
+  static constexpr int kStats = kStage0 + kStages * kStageBytes;
+  static constexpr int kBars = kStats + kStages * 2 * kInner * 4;
+  static constexpr int kBytes = kBars + 8 * (1 + kStages);
+  static constexpr int kAlloc = kBytes + 1024;  // slack to align the base
+  static constexpr int kRedPitch = D + 8;
+  static constexpr int kRedBytes = kSplit * kOuter * kRedPitch * 4;
+  static_assert(2 * kRedBytes <= kStats, "the partial sums fit in the tile planes");
 };
 
 struct Args {
-  const float* q;
-  const float* k;
-  const float* v;
-  const float* dout;
   const float* lse;    // [B*H, Tq]
   const float* delta;  // [B*H, Tq]
-  float* dq;
-  float* dk;
-  float* dv;
-  long long q_sb, q_st, q_sh;  // strides in elements: batch, position, head
-  long long k_sb, k_st, k_sh;
-  long long v_sb, v_st, v_sh;
-  long long do_sb, do_st, do_sh;
-  long long dq_sb, dq_st, dq_sh;
-  long long dk_sb, dk_st, dk_sh;
-  long long dv_sb, dv_st, dv_sh;
+  float* out0;         // dQ (dQ pass) or dK (dK/dV pass)
+  float* out1;         // dV (dK/dV pass)
+  long long o0_sb, o0_st, o0_sh;  // strides in elements: batch, position, head
+  long long o1_sb, o1_st, o1_sh;
   int heads, tq, tk, n_tiles, causal;
   float scale;
 };
 
-// Rows [row0, row0 + 64) of one (batch, head) of a [B, T, H, D] tensor
-// into a tile; rows at or past t_end are zero.
-template <int D, int kLd>
-__device__ __forceinline__ void load_tile(float* tile, const float* g, long long st, int row0,
-                                          int t_end) {
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i / D, c = i % D, t = row0 + r;
-    tile[r * kLd + c] = t < t_end ? g[t * st + c] : 0.f;
+// ---------------------------------------------------------------------------
+// 3xTF32
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + (at most ~2^-22 |x|), both TF32.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d (+)= a.b, one m16n8k8 TF32 product: a rows g, g+8 x columns t, t+4;
+// b rows (k) t, t+4 x column (n) g; d rows g, g+8 x columns 2t, 2t+1.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_zero(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f), "f"(0.f),
+        "f"(0.f), "f"(0.f));
+}
+
+// acc (=)+= a.b over C 8-deep steps in 3xTF32: every small product
+// (hi.lo, lo.hi) first, then the large ones (hi.hi), into fresh
+// accumulators, then one f32 add each. A chain of tensor-core
+// accumulations that truncates loses up to an ulp of the running sum at
+// every product; here only the C large products lose that much, of the
+// chain's own sum, and the running sum rounds to nearest. B fragments:
+// words n, n + 1 of b_hi[j], b_lo[j] (one 8-column block).
+template <int C>
+__device__ __forceinline__ void mma3(float (&acc)[4], bool first, const uint32_t (&a_hi)[C][4],
+                                     const uint32_t (&a_lo)[C][4], const uint32_t (&b_hi)[C][4],
+                                     const uint32_t (&b_lo)[C][4], int n) {
+  float d[4];
+  mma_zero(d, a_hi[0], b_lo[0][n], b_lo[0][n + 1]);
+  mma(d, a_lo[0], b_hi[0][n], b_hi[0][n + 1]);
+#pragma unroll
+  for (int j = 1; j < C; ++j) {
+    mma(d, a_hi[j], b_lo[j][n], b_lo[j][n + 1]);
+    mma(d, a_lo[j], b_hi[j][n], b_hi[j][n + 1]);
+  }
+#pragma unroll
+  for (int j = 0; j < C; ++j) mma(d, a_hi[j], b_hi[j][n], b_hi[j][n + 1]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] = first ? d[i] : acc[i] + d[i];
+}
+
+// The A fragment of an accumulator block (rows g, g+8 x columns 2t, 2t+1),
+// split: column t of the fragment is column 2t, column t+4 is 2t+1.
+__device__ __forceinline__ void acc_to_a(const float (&c)[4], uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  split(c[0], hi[0], lo[0]);
+  split(c[2], hi[1], lo[1]);
+  split(c[1], hi[2], lo[2]);
+  split(c[3], hi[3], lo[3]);
+}
+
+// ---------------------------------------------------------------------------
+// Shared memory
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[4], uint32_t addr) {  // into r[0], r[1]
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t lds(uint32_t addr) {
+  uint32_t r;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(r) : "r"(addr));
+  return r;
+}
+
+// Orders this thread's generic-proxy writes to shared memory (the split)
+// before the TMA loads that later overwrite the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of 8-column step ``step`` in a tile of R rows for a lane
+// whose offset at step 0 is ``lane_off``: the step moves by atoms of 32
+// columns and, within an atom, XORs chunk pairs (c ^ (r % 8) is linear in
+// c's XOR).
+template <int R>
+__device__ __forceinline__ uint32_t step_off(uint32_t lane_off, int step) {
+  return (step >> 2) * (R * 128) + (lane_off ^ ((step & 3) << 5));
+}
+
+// Rows [row0, row0 + R) of head h of batch b: one TMA box per 32-column atom.
+template <int D, int R>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int b, int h, int row0) {
+#pragma unroll
+  for (int atom = 0; atom < D / 32; ++atom)
+    hopper::tma_load_4d(dst + atom * R * 128, map, bar, atom * 32, h, row0, b);
+}
+
+// The raw tile in the kPlane bytes at ``hi`` becomes its hi part, and its
+// lo part goes to the plane after it; each thread takes every kThreads-th
+// 16-byte chunk (same offsets in both planes: the layout is kept).
+template <int kPlane>
+__device__ __forceinline__ void split_tile(unsigned char* hi) {
+#pragma unroll 4
+  for (int i = threadIdx.x * 16; i < kPlane; i += kThreads * 16) {
+    const float4 x = *reinterpret_cast<const float4*>(hi + i);
+    uint4 h, l;
+    split(x.x, h.x, l.x);
+    split(x.y, h.y, l.y);
+    split(x.z, h.z, l.z);
+    split(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + i) = h;
+    *reinterpret_cast<uint4*>(hi + kPlane + i) = l;
   }
 }
 
-// s[r][j] = A[r][:] . B[lane + 32 j][:] for the warp's 16 rows of A and
-// the tile's 64 rows of B.
-template <int D, int kLd>
-__device__ __forceinline__ void product_nt(const float* a, const float* b, int lane,
-                                           float (&s)[kRowsPerWarp][2]) {
+// Per-lane offsets of the fragment loads, at step 0:
+//  a: ldmatrix.x4 of the A fragment of the warp's 16 rows of an own tile
+//     (matrices: rows 0-7 / 8-15 x words 0-3 / 4-7);
+//  b: ldmatrix.x4 (.x2: lanes 0-15) of the B fragments of two 8-row
+//     blocks of a tile (block 0 words 0-3 / 4-7, block 1 words 0-3 / 4-7);
+//  col[e]: the scalar B load of row 2t + e, column g of an 8 x 8 block.
+struct LaneOffsets {
+  uint32_t a, b, col[2];
+  __device__ __forceinline__ LaneOffsets(int warp, int lane) {
+    const int g = lane >> 2, t = lane & 3, r8 = lane & 7;
+    a = (16 * (warp & 3) + r8 + 8 * ((lane >> 3) & 1)) * 128 + (((lane >> 4) ^ r8) << 4);
+    b = (r8 + 8 * (lane >> 4)) * 128 + ((((lane >> 3) & 1) ^ r8) << 4);
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) s[r][0] = s[r][1] = 0.f;
-#pragma unroll 4
-  for (int kk = 0; kk < D; ++kk) {
-    const float b0 = b[lane * kLd + kk];
-    const float b1 = b[(lane + 32) * kLd + kk];
+    for (int e = 0; e < 2; ++e)
+      col[e] = (2 * t + e) * 128 + (((g >> 2) ^ (2 * t + e)) << 4) + ((g & 3) << 2);
+  }
+};
+
+// s[nb] = X . Y^T over D for the warp's 16 rows of an own tile X (at
+// ``x``) and the warp's R / kSplit rows of an inner tile of R rows (at
+// ``y``), both read along rows; each as hi and lo planes kXPlane /
+// kYPlane apart.
+template <int D, int R, int kXPlane, int kYPlane>
+__device__ __forceinline__ void product_rows(float (&s)[R / 8 / kSplit][4], uint32_t x,
+                                             uint32_t y, const LaneOffsets& off) {
+  constexpr int kBlocks = R / 8 / kSplit;
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float av = a[r * kLd + kk];
-      s[r][0] = fmaf(av, b0, s[r][0]);
-      s[r][1] = fmaf(av, b1, s[r][1]);
+  for (int k0 = 0; k0 < D / 8; k0 += kChain) {
+    uint32_t a_hi[kChain][4], a_lo[kChain][4];
+#pragma unroll
+    for (int j = 0; j < kChain; ++j) {
+      const uint32_t xa = x + step_off<kOuter>(off.a, k0 + j);
+      ldsm_x4(a_hi[j], xa);
+      ldsm_x4(a_lo[j], xa + kXPlane);
+    }
+#pragma unroll
+    for (int np = 0; np < (kBlocks + 1) / 2; ++np) {
+      uint32_t b_hi[kChain][4], b_lo[kChain][4];
+#pragma unroll
+      for (int j = 0; j < kChain; ++j) {
+        const uint32_t yb = y + np * 16 * 128 + step_off<R>(off.b, k0 + j);
+        if constexpr (kBlocks == 1) {
+          ldsm_x2(b_hi[j], yb);
+          ldsm_x2(b_lo[j], yb + kYPlane);
+        } else {
+          ldsm_x4(b_hi[j], yb);
+          ldsm_x4(b_lo[j], yb + kYPlane);
+        }
+      }
+      mma3<kChain>(s[2 * np], k0 == 0, a_hi, a_lo, b_hi, b_lo, 0);
+      if constexpr (kBlocks > 1) mma3<kChain>(s[2 * np + 1], k0 == 0, a_hi, a_lo, b_hi, b_lo, 2);
     }
   }
 }
 
-// acc[r][c] += sum_j A[r][j] * B[j][lane + 32 c], A with pitch kLdS.
-template <int D, int kLd>
-__device__ __forceinline__ void product_nn(const float* a, const float* b, int lane,
-                                           float (&acc)[kRowsPerWarp][D / 32]) {
-#pragma unroll 4
-  for (int j = 0; j < kTile; ++j) {
-    float bv[D / 32];
+// acc[nb] (columns 8 nb.. of the warp's rows) += A . B over the warp's
+// R / kSplit rows of an inner tile, A the accumulator blocks ``c`` (as
+// acc_to_a reads them), B the tile rows at ``tile`` (hi plane; lo kPlane
+// bytes after) read along their columns, rows in the order 2t, 2t + 1.
+template <int D, int R, int kPlane>
+__device__ __forceinline__ void product_cols(float (&acc)[D / 8][4],
+                                             const float (&c)[R / 8 / kSplit][4], uint32_t tile,
+                                             const LaneOffsets& off) {
+  constexpr int kBlocks = R / 8 / kSplit;
+  constexpr int C = kBlocks % kChain == 0 ? kChain : 1;
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c) bv[c] = b[j * kLd + lane + 32 * c];
+  for (int k0 = 0; k0 < kBlocks; k0 += C) {
+    uint32_t a_hi[C][4], a_lo[C][4];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float aj = a[r * kLdS + j];
+    for (int j = 0; j < C; ++j) acc_to_a(c[k0 + j], a_hi[j], a_lo[j]);
 #pragma unroll
-      for (int c = 0; c < D / 32; ++c) acc[r][c] = fmaf(aj, bv[c], acc[r][c]);
+    for (int nb = 0; nb < D / 8; ++nb) {
+      uint32_t b_hi[C][4], b_lo[C][4];
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        const uint32_t at = tile + (nb >> 2) * (R * 128) + (k0 + j) * 1024;
+        const uint32_t x0 = at + (off.col[0] ^ ((nb & 3) << 5));
+        const uint32_t x1 = at + (off.col[1] ^ ((nb & 3) << 5));
+        b_hi[j][0] = lds(x0);
+        b_hi[j][1] = lds(x1);
+        b_lo[j][0] = lds(x0 + kPlane);
+        b_lo[j][1] = lds(x1 + kPlane);
+      }
+      mma3<C>(acc[nb], false, a_hi, a_lo, b_hi, b_lo, 0);
     }
   }
 }
 
-// A warp's 16 accumulated rows out to device memory; rows at or past
-// t_end are not written.
+// A warp's f32 accumulators (its 16 rows, columns 8 nb + 2t, 2t + 1) to
+// its part of ``red`` ([kSplit][kOuter][D + 8]).
 template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[kRowsPerWarp][D / 32], float* g,
-                                           long long st, int t0, int t_end, int lane) {
+__device__ __forceinline__ void stage_partial(const float (&acc)[D / 8][4], float* red, int warp,
+                                              int lane) {
+  constexpr int kPitch = D + 8;
+  float* r = red + ((warp >> 2) * kOuter + 16 * (warp & 3) + (lane >> 2)) * kPitch +
+             2 * (lane & 3);
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int t = t0 + r;
-    if (t >= t_end) continue;
+  for (int half = 0; half < 2; ++half)
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c) g[t * st + lane + 32 * c] = acc[r][c];
+    for (int nb = 0; nb < D / 8; ++nb)
+      *reinterpret_cast<float2*>(r + half * 8 * kPitch + 8 * nb) =
+          make_float2(acc[nb][2 * half], acc[nb][2 * half + 1]);
+}
+
+// The block's 64 x D output tile, the sum of the kSplit parts of ``red``
+// (in order, the same every run; ``red`` null: zeros), out to rows
+// [row0, min(row0 + 64, t_end)) of ``g`` with 16-byte stores.
+template <int D>
+__device__ __forceinline__ void store_tile(const float* red, float* g, long long st, int row0,
+                                           int t_end) {
+  constexpr int kPitch = D + 8;
+  for (int i = threadIdx.x; i < kOuter * D / 4; i += kThreads) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    if (row0 + r >= t_end) continue;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (red != nullptr) {
+      sum = *reinterpret_cast<const float4*>(red + r * kPitch + c);
+#pragma unroll
+      for (int part = 1; part < kSplit; ++part) {
+        const float4 y = *reinterpret_cast<const float4*>(red + (part * kOuter + r) * kPitch + c);
+        sum = make_float4(sum.x + y.x, sum.y + y.y, sum.z + y.z, sum.w + y.w);
+      }
+    }
+    *reinterpret_cast<float4*>(g + (row0 + r) * st + c) = sum;
   }
 }
 
-// The 64 rows' LSE and delta from [B*H, Tq]; rows at or past Tq get 0
-// (their p is masked or their inputs are zero).
-__device__ __forceinline__ void load_stats(float* lse_s, float* dl_s, const Args& a, int bh,
-                                           int m0) {
-  if (threadIdx.x < kTile) {
-    const int t = m0 + threadIdx.x;
-    const long long i = static_cast<long long>(bh) * a.tq + t;
-    lse_s[threadIdx.x] = t < a.tq ? a.lse[i] : 0.f;
-    dl_s[threadIdx.x] = t < a.tq ? a.delta[i] : 0.f;
-  }
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N][4]) {
+#pragma unroll
+  for (int nb = 0; nb < N; ++nb)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nb][i] = 0.f;
 }
 
-// dQ pass: one block per (batch*head, 64-row query tile), looping over
-// the key tiles at or below the diagonal.
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_fp32_kernel(const Args a) {
-  using L = Layout<D>;
-  constexpr int kLd = L::kLdX;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem + L::kQ);
-  float* dos = reinterpret_cast<float*>(smem + L::kDO);
-  float* ks = reinterpret_cast<float*>(smem + L::kK);
-  float* vs = reinterpret_cast<float*>(smem + L::kV);
-  float* lse_s = reinterpret_cast<float*>(smem + L::kStats);
-  float* dl_s = lse_s + kTile;
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024 - (hopper::smem_addr(raw) & 1023)) & 1023);
+}
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+// ---------------------------------------------------------------------------
+// dQ pass: one block per (batch*head, 64-row query tile), looping over the
+// key tiles at or below the diagonal. Warps w and w + 4 own query rows
+// 16 (w % 4).., and take keys [0, R/2) and [R/2, R) of each key tile.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_fp32_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const __grid_constant__ CUtensorMap do_map, const Args a) {
+  using L = Smem<D>;
+  constexpr int R = L::kInner;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t base = hopper::smem_addr(smem);
+  const uint32_t q_s = base, do_s = base + 2 * L::kOuterPlane;
+  const uint32_t own_bar = base + L::kBars;
+  auto stage = [&](int st) { return L::kStage0 + st * L::kStageBytes; };  // k; v 2 planes on
+  auto full = [&](int st) { return base + L::kBars + 8 * (1 + st); };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int col0 = (warp >> 2) * (R / kSplit);  // the warp's first key in a tile
   // Longest causal rows first, so the heaviest blocks start earliest.
   const int qt = a.n_tiles - 1 - static_cast<int>(blockIdx.x % a.n_tiles);
   const int bh = static_cast<int>(blockIdx.x / a.n_tiles);
-  const int b = bh / a.heads;
-  const int h = bh % a.heads;
-  const int m0 = qt * kTile;
-  const int row0 = warp * kRowsPerWarp;  // the warp's first row in the tile
+  const int b = bh / a.heads, h = bh % a.heads;
+  const int m0 = qt * kOuter;
+  const int n_end = a.causal ? min(a.tk, m0 + kOuter) : a.tk;
+  const int n_tiles = (n_end + R - 1) / R;
 
-  const float* kg = a.k + b * a.k_sb + h * a.k_sh;
-  const float* vg = a.v + b * a.v_sb + h * a.v_sh;
-  load_tile<D, kLd>(qs, a.q + b * a.q_sb + h * a.q_sh, a.q_st, m0, a.tq);
-  load_tile<D, kLd>(dos, a.dout + b * a.do_sb + h * a.do_sh, a.do_st, m0, a.tq);
-  load_stats(lse_s, dl_s, a, bh, m0);
-
-  float* ss = reinterpret_cast<float*>(smem + L::kS) + row0 * kLdS;
-
-  float acc[kRowsPerWarp][D / 32];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c) acc[r][c] = 0.f;
-
-  const int n_end = a.causal ? min(a.tk, m0 + kTile) : a.tk;
-  for (int n0 = 0; n0 < n_end; n0 += kTile) {
-    __syncthreads();  // the previous tiles are consumed (and q, dO written)
-    load_tile<D, kLd>(ks, kg, a.k_st, n0, a.tk);
-    load_tile<D, kLd>(vs, vg, a.v_st, n0, a.tk);
-    __syncthreads();
-
-    float s[kRowsPerWarp][2], dp[kRowsPerWarp][2];
-    product_nt<D, kLd>(qs + row0 * kLd, ks, lane, s);
-    product_nt<D, kLd>(dos + row0 * kLd, vs, lane, dp);
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int lr = row0 + r, qi = m0 + lr;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kj = n0 + lane + 32 * j;
-        const bool ok = kj < a.tk && (!a.causal || qi >= kj);
-        const float p = ok ? expf(s[r][j] * a.scale - lse_s[lr]) : 0.f;
-        ss[r * kLdS + lane + 32 * j] = p * (dp[r][j] - dl_s[lr]) * a.scale;
-      }
+  // Thread 0 copies key tile ``tile`` (k and v) into stage st, if it exists.
+  auto load_kv = [&](int st, int tile) {
+    if (tid == 0 && tile < n_tiles) {
+      const uint32_t dst = base + stage(st);
+      hopper::mbar_expect_tx(full(st), 2 * L::kInnerPlane);
+      tma_tile<D, R>(dst, &k_map, full(st), b, h, tile * R);
+      tma_tile<D, R>(dst + 2 * L::kInnerPlane, &v_map, full(st), b, h, tile * R);
     }
-    __syncwarp();
-    product_nn<D, kLd>(ss, ks, lane, acc);
+  };
+  if (tid == 0) {
+    hopper::mbar_init(own_bar, 1);
+    for (int st = 0; st < kStages; ++st) hopper::mbar_init(full(st), 1);
+    hopper::mbar_fence_init();
+    hopper::mbar_expect_tx(own_bar, 2 * L::kOuterPlane);
+    tma_tile<D, kOuter>(q_s, &q_map, own_bar, b, h, m0);
+    tma_tile<D, kOuter>(do_s, &do_map, own_bar, b, h, m0);
+  }
+  for (int st = 0; st < kStages; ++st) load_kv(st, st);
+
+  // This thread's rows r0 and r0 + 8: LSE and delta; rows past Tq get 0
+  // (their q and dO are zero, so their dS is too).
+  const int r0 = m0 + 16 * (warp & 3) + g;
+  float lse[2], delta[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + 8 * half;
+    const long long i = static_cast<long long>(bh) * a.tq + row;
+    lse[half] = row < a.tq ? a.lse[i] : 0.f;
+    delta[half] = row < a.tq ? a.delta[i] : 0.f;
+  }
+  const LaneOffsets off(warp, lane);
+  float dq[D / 8][4];
+  zero(dq);
+  __syncthreads();  // the barriers are initialised
+
+  hopper::mbar_wait(own_bar, 0);
+  split_tile<L::kOuterPlane>(smem);
+  split_tile<L::kOuterPlane>(smem + 2 * L::kOuterPlane);
+  hopper::mbar_wait(full(0), 0);
+  split_tile<L::kInnerPlane>(smem + stage(0));
+  split_tile<L::kInnerPlane>(smem + stage(0) + 2 * L::kInnerPlane);
+  __syncthreads();
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kStages, n0 = it * R;
+    const uint32_t k_s = base + stage(st) + col0 * 128, v_s = k_s + 2 * L::kInnerPlane;
+
+    float s[R / 8 / kSplit][4], dp[R / 8 / kSplit][4];
+    product_rows<D, R, L::kOuterPlane, L::kInnerPlane>(s, q_s, k_s, off);
+    product_rows<D, R, L::kOuterPlane, L::kInnerPlane>(dp, do_s, v_s, off);
+
+    // dS into dp, in place.
+    const bool edge = (a.causal && n0 + R - 1 > m0) || n0 + R > a.tk;
+#pragma unroll
+    for (int kb = 0; kb < R / 8 / kSplit; ++kb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int half = i >> 1;
+        float p = expf(s[kb][i] * a.scale - lse[half]);
+        if (edge) {
+          const int col = n0 + col0 + 8 * kb + 2 * t + (i & 1), row = r0 + 8 * half;
+          if (col >= a.tk || (a.causal && row < col)) p = 0.f;
+        }
+        dp[kb][i] = p * (dp[kb][i] - delta[half]) * a.scale;
+      }
+
+    product_cols<D, R, L::kInnerPlane>(dq, dp, k_s, off);
+
+    // The next key tile, once it lands, is split by each warp as it
+    // finishes this one's products; the barrier then frees this stage.
+    if (it + 1 < n_tiles) {
+      const int nx = (it + 1) % kStages;
+      hopper::mbar_wait(full(nx), ((it + 1) / kStages) & 1);
+      split_tile<L::kInnerPlane>(smem + stage(nx));
+      split_tile<L::kInnerPlane>(smem + stage(nx) + 2 * L::kInnerPlane);
+      fence_proxy_async();
+    }
+    __syncthreads();
+    load_kv(st, it + kStages);
   }
 
-  store_rows<D>(acc, a.dq + b * a.dq_sb + h * a.dq_sh, a.dq_st, m0 + row0, a.tq, lane);
+  float* red = reinterpret_cast<float*>(smem);  // the tiles are consumed
+  stage_partial<D>(dq, red, warp, lane);
+  __syncthreads();
+  store_tile<D>(red, a.out0 + b * a.o0_sb + h * a.o0_sh, a.o0_st, m0, a.tq);
 }
 
+// ---------------------------------------------------------------------------
 // dK/dV pass: one block per (batch*head, 64-key tile), looping over the
-// query tiles at or below the diagonal. Each warp owns 16 keys and works
-// on the transposed tiles S^T = K.Q^T and dP^T = V.dO^T.
+// query tiles at or below the diagonal. Warps w and w + 4 own keys
+// 16 (w % 4).. and take queries [0, R/2) and [R/2, R) of each query tile;
+// they work on the transposed tiles S^T = K.Q^T and dP^T = V.dO^T.
+// ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_fp32_kernel(const Args a) {
-  using L = Layout<D>;
-  constexpr int kLd = L::kLdX;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem + L::kQ);
-  float* dos = reinterpret_cast<float*>(smem + L::kDO);
-  float* ks = reinterpret_cast<float*>(smem + L::kK);
-  float* vs = reinterpret_cast<float*>(smem + L::kV);
-  float* lse_s = reinterpret_cast<float*>(smem + L::kStats);
-  float* dl_s = lse_s + kTile;
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_fp32_kernel(const __grid_constant__ CUtensorMap q_map,
+                              const __grid_constant__ CUtensorMap k_map,
+                              const __grid_constant__ CUtensorMap v_map,
+                              const __grid_constant__ CUtensorMap do_map, const Args a) {
+  using L = Smem<D>;
+  constexpr int R = L::kInner;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t base = hopper::smem_addr(smem);
+  const uint32_t k_s = base, v_s = base + 2 * L::kOuterPlane;
+  const uint32_t own_bar = base + L::kBars;
+  auto stage = [&](int st) { return L::kStage0 + st * L::kStageBytes; };  // q; dO 2 planes on
+  auto stats = [&](int st) { return reinterpret_cast<float*>(smem + L::kStats) + st * 2 * R; };
+  auto full = [&](int st) { return base + L::kBars + 8 * (1 + st); };
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int col0 = (warp >> 2) * (R / kSplit);  // the warp's first query in a tile
   // Key tile 0 meets the most causal query tiles: it starts first.
   const int kt = static_cast<int>(blockIdx.x % a.n_tiles);
   const int bh = static_cast<int>(blockIdx.x / a.n_tiles);
-  const int b = bh / a.heads;
-  const int h = bh % a.heads;
-  const int n0 = kt * kTile;
-  const int row0 = warp * kRowsPerWarp;  // the warp's first key in the tile
-  const int kj0 = n0 + row0;
-
-  const float* qg = a.q + b * a.q_sb + h * a.q_sh;
-  const float* dog = a.dout + b * a.do_sb + h * a.do_sh;
-  load_tile<D, kLd>(ks, a.k + b * a.k_sb + h * a.k_sh, a.k_st, n0, a.tk);
-  load_tile<D, kLd>(vs, a.v + b * a.v_sb + h * a.v_sh, a.v_st, n0, a.tk);
-
-  float* ss = reinterpret_cast<float*>(smem + L::kS) + row0 * kLdS;
-  float* sdp = reinterpret_cast<float*>(smem + L::kDP) + row0 * kLdS;
-
-  float acc_k[kRowsPerWarp][D / 32], acc_v[kRowsPerWarp][D / 32];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
-
+  const int b = bh / a.heads, h = bh % a.heads;
+  const int n0 = kt * kOuter;
+  const int kj0 = n0 + 16 * (warp & 3) + g;  // this thread's keys kj0 and kj0 + 8
   // Query tiles wholly above the diagonal hold no query that attends to
-  // these keys. Past every query (Tq < Tk, causal) the loop is empty and
-  // the zero accumulators are written.
-  for (int m0 = a.causal ? n0 : 0; m0 < a.tq; m0 += kTile) {
-    __syncthreads();  // the previous tiles are consumed (and k, v written)
-    load_tile<D, kLd>(qs, qg, a.q_st, m0, a.tq);
-    load_tile<D, kLd>(dos, dog, a.do_st, m0, a.tq);
-    load_stats(lse_s, dl_s, a, bh, m0);
-    __syncthreads();
-
-    float s[kRowsPerWarp][2], dp[kRowsPerWarp][2];
-    product_nt<D, kLd>(ks + row0 * kLd, qs, lane, s);
-    product_nt<D, kLd>(vs + row0 * kLd, dos, lane, dp);
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int kj = kj0 + r;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int ql = lane + 32 * j, qi = m0 + ql;
-        const bool ok = qi < a.tq && kj < a.tk && (!a.causal || qi >= kj);
-        const float p = ok ? expf(s[r][j] * a.scale - lse_s[ql]) : 0.f;
-        ss[r * kLdS + ql] = p;
-        sdp[r * kLdS + ql] = p * (dp[r][j] - dl_s[ql]) * a.scale;
-      }
-    }
-    __syncwarp();
-    product_nn<D, kLd>(ss, dos, lane, acc_v);
-    product_nn<D, kLd>(sdp, qs, lane, acc_k);
+  // these keys (R divides 64, so the first one left starts at n0).
+  const int m_start = a.causal ? n0 : 0;
+  const int n_tiles = m_start < a.tq ? (a.tq - m_start + R - 1) / R : 0;
+  float* dkg = a.out0 + b * a.o0_sb + h * a.o0_sh;
+  float* dvg = a.out1 + b * a.o1_sb + h * a.o1_sh;
+  if (n_tiles == 0) {  // past every query (causal, Tq < Tk): zeros
+    store_tile<D>(nullptr, dkg, a.o0_st, n0, a.tk);
+    store_tile<D>(nullptr, dvg, a.o1_st, n0, a.tk);
+    return;
   }
 
-  store_rows<D>(acc_k, a.dk + b * a.dk_sb + h * a.dk_sh, a.dk_st, kj0, a.tk, lane);
-  store_rows<D>(acc_v, a.dv + b * a.dv_sb + h * a.dv_sh, a.dv_st, kj0, a.tk, lane);
+  // Thread 0 copies query tile ``tile`` (q and dO) into stage st, if it exists.
+  auto load_q = [&](int st, int tile) {
+    if (tid == 0 && tile < n_tiles) {
+      const uint32_t dst = base + stage(st);
+      hopper::mbar_expect_tx(full(st), 2 * L::kInnerPlane);
+      tma_tile<D, R>(dst, &q_map, full(st), b, h, m_start + tile * R);
+      tma_tile<D, R>(dst + 2 * L::kInnerPlane, &do_map, full(st), b, h, m_start + tile * R);
+    }
+  };
+  // The LSE and delta of query tile ``tile``'s row ``tid`` (0 past Tq).
+  auto row_stats = [&](int tile, float& l, float& d) {
+    const int m = m_start + tile * R + tid;
+    const long long i = static_cast<long long>(bh) * a.tq + m;
+    const bool ok = tid < R && tile < n_tiles && m < a.tq;
+    l = ok ? a.lse[i] : 0.f;
+    d = ok ? a.delta[i] : 0.f;
+  };
+  if (tid == 0) {
+    hopper::mbar_init(own_bar, 1);
+    for (int st = 0; st < kStages; ++st) hopper::mbar_init(full(st), 1);
+    hopper::mbar_fence_init();
+    hopper::mbar_expect_tx(own_bar, 2 * L::kOuterPlane);
+    tma_tile<D, kOuter>(k_s, &k_map, own_bar, b, h, n0);
+    tma_tile<D, kOuter>(v_s, &v_map, own_bar, b, h, n0);
+  }
+  for (int st = 0; st < kStages; ++st) load_q(st, st);
+  if (tid < R) row_stats(0, stats(0)[tid], stats(0)[R + tid]);
+
+  const LaneOffsets off(warp, lane);
+  float dk[D / 8][4], dv[D / 8][4];
+  zero(dk);
+  zero(dv);
+  __syncthreads();  // the barriers are initialised
+
+  hopper::mbar_wait(own_bar, 0);
+  split_tile<L::kOuterPlane>(smem);
+  split_tile<L::kOuterPlane>(smem + 2 * L::kOuterPlane);
+  hopper::mbar_wait(full(0), 0);
+  split_tile<L::kInnerPlane>(smem + stage(0));
+  split_tile<L::kInnerPlane>(smem + stage(0) + 2 * L::kInnerPlane);
+  __syncthreads();
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kStages, m0 = m_start + it * R;
+    const uint32_t q_s = base + stage(st) + col0 * 128, do_s = q_s + 2 * L::kInnerPlane;
+    float next_lse, next_delta;  // the next tile's, stored when it is split
+    row_stats(it + 1, next_lse, next_delta);
+
+    float s[R / 8 / kSplit][4], dp[R / 8 / kSplit][4];
+    product_rows<D, R, L::kOuterPlane, L::kInnerPlane>(s, k_s, q_s, off);
+    product_rows<D, R, L::kOuterPlane, L::kInnerPlane>(dp, v_s, do_s, off);
+
+    // p into s and dS into dp, in place; columns are queries.
+    const float* lse_s = stats(st) + col0;
+    const float* dl_s = lse_s + R;
+    const bool edge = (a.causal && m0 < n0 + kOuter - 1) || m0 + R > a.tq || n0 + kOuter > a.tk;
+#pragma unroll
+    for (int kb = 0; kb < R / 8 / kSplit; ++kb) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * kb + 2 * t);
+      const float2 d2 = *reinterpret_cast<const float2*>(dl_s + 8 * kb + 2 * t);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = i & 1;
+        float p = expf(s[kb][i] * a.scale - (c ? l2.y : l2.x));
+        if (edge) {
+          const int qi = m0 + col0 + 8 * kb + 2 * t + c, kj = kj0 + 8 * (i >> 1);
+          if (qi >= a.tq || kj >= a.tk || (a.causal && qi < kj)) p = 0.f;
+        }
+        s[kb][i] = p;
+        dp[kb][i] = p * (dp[kb][i] - (c ? d2.y : d2.x)) * a.scale;
+      }
+    }
+
+    product_cols<D, R, L::kInnerPlane>(dv, s, do_s, off);
+    product_cols<D, R, L::kInnerPlane>(dk, dp, q_s, off);
+
+    // The next query tile, once it lands, is split by each warp as it
+    // finishes this one's products; the barrier then frees this stage.
+    if (it + 1 < n_tiles) {
+      const int nx = (it + 1) % kStages;
+      hopper::mbar_wait(full(nx), ((it + 1) / kStages) & 1);
+      split_tile<L::kInnerPlane>(smem + stage(nx));
+      split_tile<L::kInnerPlane>(smem + stage(nx) + 2 * L::kInnerPlane);
+      if (tid < R) {
+        stats(nx)[tid] = next_lse;
+        stats(nx)[R + tid] = next_delta;
+      }
+      fence_proxy_async();
+    }
+    __syncthreads();
+    load_q(st, it + kStages);
+  }
+
+  float* red = reinterpret_cast<float*>(smem);  // the tiles are consumed
+  stage_partial<D>(dk, red, warp, lane);
+  stage_partial<D>(dv, red + L::kRedBytes / 4, warp, lane);
+  __syncthreads();
+  store_tile<D>(red, dkg, a.o0_st, n0, a.tk);
+  store_tile<D>(red + L::kRedBytes / 4, dvg, a.o1_st, n0, a.tk);
 }
 
+// A 4-D TMA map over one [B, T, H, D] f32 tensor read through its strides
+// in elements (sb, st, sh; head_dim contiguous): dims (D, H, T, B), boxes
+// of 32 columns x ``rows`` positions of one (batch, head), 128-byte
+// swizzled, zeros past T. TMA needs a 16-byte aligned base and strides
+// that are multiples of 16 bytes (ops/_kernels.py:tma_aligned).
+cudaError_t make_map(CUtensorMap* map, const void* base, int batch, int seq, int heads,
+                     int head_dim, long long sb, long long st, long long sh, int rows) {
+  const hopper::EncodeTiled encode = hopper::encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 4, static_cast<cuuint64_t>(st) * 4,
+                                 static_cast<cuuint64_t>(sb) * 4};
+  const cuuint32_t box[4] = {32, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base),
+                            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Builds the four maps (q, k, v, dO; the pass's own two tensors in boxes
+// of 64 rows, the inner two in boxes of the inner tile's rows), sets the
+// tile count from the rows the blocks tile (Tq for dQ, Tk for dK/dV) and
+// launches a pass.
 template <int D, bool kDq>
-cudaError_t launch(const Args& a, unsigned int n_blocks, cudaStream_t stream) {
-  constexpr size_t smem = Layout<D>::kBytes;
+cudaError_t launch(Args& a, const void* const (&ptrs)[4], const long long (&strides)[4][3],
+                   int batch, cudaStream_t stream) {
+  constexpr int kInner = inner_rows<D>();
+  const int seq[4] = {a.tq, a.tk, a.tk, a.tq};
+  const bool own[4] = {kDq, !kDq, !kDq, kDq};
+  CUtensorMap maps[4];
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = make_map(&maps[i], ptrs[i], batch, seq[i], a.heads, D, strides[i][0],
+                                     strides[i][1], strides[i][2], own[i] ? kOuter : kInner);
+    if (err != cudaSuccess) return err;
+  }
+  a.n_tiles = ((kDq ? a.tq : a.tk) + kOuter - 1) / kOuter;
+  const long long n_blocks = static_cast<long long>(a.n_tiles) * batch * a.heads;
+  if (n_blocks <= 0 || n_blocks > INT_MAX) return cudaErrorInvalidValue;
+  constexpr int smem = Smem<D>::kAlloc;
   auto kernel = kDq ? flash_bwd_dq_fp32_kernel<D> : flash_bwd_dkv_fp32_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<n_blocks, kThreads, smem, stream>>>(a);
+  kernel<<<static_cast<unsigned int>(n_blocks), kThreads, smem, stream>>>(maps[0], maps[1],
+                                                                          maps[2], maps[3], a);
   return cudaGetLastError();
 }
 
-// Sets the tile count from the rows the blocks tile (Tq for dQ, Tk for
-// dK/dV) and launches a pass.
 template <bool kDq>
-cudaError_t launch_pass(Args& a, int batch, int tile_rows, int head_dim, cudaStream_t stream) {
-  a.n_tiles = (tile_rows + kTile - 1) / kTile;
-  const long long n_blocks = static_cast<long long>(a.n_tiles) * batch * a.heads;
-  if (n_blocks <= 0 || n_blocks > INT_MAX) return cudaErrorInvalidValue;
-  const auto nb = static_cast<unsigned int>(n_blocks);
-  if (head_dim == 64) return launch<64, kDq>(a, nb, stream);
-  if (head_dim == 128) return launch<128, kDq>(a, nb, stream);
+cudaError_t launch_pass(Args& a, const void* const (&ptrs)[4], const long long (&strides)[4][3],
+                        int batch, int head_dim, cudaStream_t stream) {
+  if (head_dim == 64) return launch<64, kDq>(a, ptrs, strides, batch, stream);
+  if (head_dim == 128) return launch<128, kDq>(a, ptrs, strides, batch, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Strides are in elements; the head_dim axis of every tensor must be
-// contiguous; lse and delta are contiguous [B*H, Tq] f32. Each returns a
-// cudaError_t (0 on success).
+// Strides are in elements. q, k, v and dout must have a 16-byte aligned
+// base, a contiguous head_dim axis and strides that are multiples of 16
+// bytes (TMA); the gradients 16-byte aligned rows with a contiguous
+// head_dim axis; lse and delta are contiguous [B*H, Tq] f32; Tq, Tk > 0.
+// Each returns a cudaError_t (0 on success).
 
 // The dQ pass for float32 inputs.
 extern "C" int ray_tpu_torch_flash_bwd_dq_fp32(
@@ -353,14 +758,13 @@ extern "C" int ray_tpu_torch_flash_bwd_dq_fp32(
     long long dq_sb, long long dq_st, long long dq_sh,
     int batch, int heads, int tq, int tk, int head_dim, int causal,
     float scale, void* stream) {
-  if (tk <= 0) return cudaErrorInvalidValue;
-  Args a{static_cast<const float*>(q), static_cast<const float*>(k),
-         static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
-         static_cast<float*>(dq), nullptr, nullptr,
-         q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, do_sb, do_st, do_sh,
-         dq_sb, dq_st, dq_sh, 0, 0, 0, 0, 0, 0,
+  if (tq <= 0 || tk <= 0) return cudaErrorInvalidValue;
+  Args a{lse, delta, static_cast<float*>(dq), nullptr, dq_sb, dq_st, dq_sh, 0, 0, 0,
          heads, tq, tk, 0, causal, scale};
-  return launch_pass<true>(a, batch, tq, head_dim, static_cast<cudaStream_t>(stream));
+  const void* const ptrs[4] = {q, k, v, dout};
+  const long long strides[4][3] = {
+      {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh}, {do_sb, do_st, do_sh}};
+  return launch_pass<true>(a, ptrs, strides, batch, head_dim, static_cast<cudaStream_t>(stream));
 }
 
 // The dK/dV pass for float32 inputs.
@@ -375,14 +779,13 @@ extern "C" int ray_tpu_torch_flash_bwd_dkv_fp32(
     long long dv_sb, long long dv_st, long long dv_sh,
     int batch, int heads, int tq, int tk, int head_dim, int causal,
     float scale, void* stream) {
-  if (tq < 0) return cudaErrorInvalidValue;
-  Args a{static_cast<const float*>(q), static_cast<const float*>(k),
-         static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
-         nullptr, static_cast<float*>(dk), static_cast<float*>(dv),
-         q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, do_sb, do_st, do_sh,
-         0, 0, 0, dk_sb, dk_st, dk_sh, dv_sb, dv_st, dv_sh,
-         heads, tq, tk, 0, causal, scale};
-  return launch_pass<false>(a, batch, tk, head_dim, static_cast<cudaStream_t>(stream));
+  if (tq <= 0 || tk <= 0) return cudaErrorInvalidValue;
+  Args a{lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
+         dk_sb, dk_st, dk_sh, dv_sb, dv_st, dv_sh, heads, tq, tk, 0, causal, scale};
+  const void* const ptrs[4] = {q, k, v, dout};
+  const long long strides[4][3] = {
+      {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh}, {do_sb, do_st, do_sh}};
+  return launch_pass<false>(a, ptrs, strides, batch, head_dim, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* ray_tpu_torch_cuda_error_string(int err) {

@@ -13,14 +13,16 @@ anything its kernel does not take; it allocates the outputs, launches on
 PyTorch's current stream, raises if the C function reports a CUDA error
 (there is no fallback to another kernel or to the plain version), and
 counts its launches in a plain int attribute (``flash_fwd.launches``,
-``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``). fp32 runs on
-kernels for the FMA units (``flash_fwd.cu``, ``flash_bwd.cu``), whose
-launches each wrapper also counts apart (``launches_fp32``); bf16/fp16 on
-wgmma kernels that read q, k, v and dO by TMA (``flash_fwd.cu``,
-``flash_bwd_dq.cu``, ``flash_bwd_dkv.cu``). TMA needs a 16-byte aligned
-base and strides that are multiples of 16 bytes (``tma_aligned``); an
-input that breaks the rule is copied first, and the copies are counted
-too (``flash_fwd.copies``, ``flash_bwd_dq.copies``,
+``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``). bf16/fp16 run on
+wgmma kernels (``flash_fwd.cu``, ``flash_bwd_dq.cu``,
+``flash_bwd_dkv.cu``); fp32 runs on its own kernels, whose launches each
+wrapper also counts apart (``launches_fp32``): the forward on the FMA
+units (``flash_fwd.cu``), both backward passes on the tensor cores in
+3xTF32 (``flash_bwd.cu``). Every kernel but the fp32 forward reads q, k,
+v (and dO) by TMA, which needs a 16-byte aligned base and strides that
+are multiples of 16 bytes (``tma_aligned``); an input that breaks the
+rule is copied first, and the copies are counted too
+(``flash_fwd.copies``, ``flash_bwd_dq.copies``,
 ``flash_bwd_dkv.copies``).
 """
 
@@ -187,7 +189,7 @@ def tma_aligned(t: torch.Tensor) -> bool:
 
 
 def _tma_inputs(wrapper, *tensors):
-    """``tensors`` as the bf16/fp16 kernels read them: each that
+    """``tensors`` as the TMA kernels read them: each that
     ``tma_aligned`` refuses is replaced by a contiguous copy, counted in
     ``wrapper.copies``."""
     out = []
@@ -245,8 +247,8 @@ def _check_row_stats(name: str, b: int, h: int, tq: int, **stats):
 def _backward_route(pass_name: str, dtype) -> tuple[str, str, tuple]:
     """Where a backward pass (``"dq"`` or ``"dkv"``) runs for ``dtype``:
     (source, C entry point, the dtype code it takes, if any). fp32 goes to
-    the FMA kernels of flash_bwd.cu, bf16/fp16 to the wgmma kernel of
-    flash_bwd_<pass>.cu."""
+    the 3xTF32 tensor-core kernels of flash_bwd.cu, bf16/fp16 to the wgmma
+    kernel of flash_bwd_<pass>.cu. Both read q, k, v and dO by TMA."""
     if dtype == torch.float32:
         return "flash_bwd.cu", f"ray_tpu_torch_flash_bwd_{pass_name}_fp32", ()
     return (f"flash_bwd_{pass_name}.cu", f"ray_tpu_torch_flash_bwd_{pass_name}",
@@ -268,8 +270,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool):
     if dq.numel() == 0:
         return dq
     source, name, dtype_code = _backward_route("dq", q.dtype)
-    if dtype_code:
-        q, k, v, do = _tma_inputs(flash_bwd_dq, q, k, v, do)
+    q, k, v, do = _tma_inputs(flash_bwd_dq, q, k, v, do)
     _launch(source, name, q,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
@@ -302,8 +303,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool):
     if tq == 0:
         return dk.zero_(), dv.zero_()
     source, name, dtype_code = _backward_route("dkv", q.dtype)
-    if dtype_code:
-        q, k, v, do = _tma_inputs(flash_bwd_dkv, q, k, v, do)
+    q, k, v, do = _tma_inputs(flash_bwd_dkv, q, k, v, do)
     _launch(source, name, q,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),

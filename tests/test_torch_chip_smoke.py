@@ -175,3 +175,55 @@ def test_f32_gemm_names(name, f32):
     shows them, cut to 80 characters) and no bf16 GEMM, elementwise or
     flash kernel."""
     assert chip_smoke._is_f32_gemm(name) is f32
+
+
+_H100 = "NVIDIA H100 80GB HBM3"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_bounds_count_3xtf32_for_fp32(dtype):
+    """The fp32 attention bounds take three TF32 operations on the tensor
+    cores for each fp32 one (495 TFLOP/s dense on an H100 SXM); bf16 keeps
+    its own 989 TFLOP/s. GPT-2 124M's training shape, causal."""
+    b, t, h, d = 8, 1024, 12, 64
+    esize = torch.empty((), dtype=dtype).element_size()
+    pairs = t * (t + 1) // 2
+    rate, by = ((495e12 / 3, "operations (3xTF32)") if dtype == torch.float32
+                else (989e12, "operations"))
+
+    def want(nbytes, ops):
+        t_bytes, t_ops = nbytes / 3.35e12 * 1e3, ops / rate * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else by
+
+    fwd_bytes = 4 * b * t * h * d * esize + b * h * t * 4
+    got = chip_smoke._attention_bound_ms(b, t, h, d, dtype, True, _H100)
+    assert got == pytest.approx(want(fwd_bytes, 4 * b * h * d * pairs), rel=1e-12)
+
+    for dq, products in ((True, 3), (False, 4)):
+        x = b * t * h * d * esize
+        nbytes = 4 * x + 2 * b * h * t * 4 + (1 if dq else 2) * x
+        got = chip_smoke._attention_bwd_bound_ms(b, t, t, h, d, dtype, True, _H100, dq=dq)
+        assert got == pytest.approx(want(nbytes, 2 * products * b * h * d * pairs), rel=1e-12)
+        assert got[1] == by  # the products bound every backward pass here
+    if dtype == torch.float32:  # the numbers the fp32 kernels' notes give
+        assert chip_smoke._attention_bwd_bound_ms(
+            b, t, t, h, d, dtype, True, _H100, dq=True)[0] == pytest.approx(0.117, abs=5e-4)
+        assert chip_smoke._attention_bwd_bound_ms(
+            b, t, t, h, d, dtype, True, _H100, dq=False)[0] == pytest.approx(0.156, abs=5e-4)
+
+
+def test_moe_bound_keeps_the_fma_peak():
+    """The dispatch/combine products are torch's f32 GEMMs on the FMA
+    units: their bound still reads the 67 TFLOP/s fp32 peak."""
+    bw, flops, tf32 = chip_smoke._peaks(_H100)
+    assert (bw, flops[torch.float32], tf32) == (3.35e12, 67e12, 495e12)
+
+
+@pytest.mark.parametrize("ms_dq,ms_dkv,library_ms,ok", [
+    (0.3, 0.4, 1.2, True), (0.6, 0.6, 1.2, True), (0.6, 0.7, 1.2, False),
+    (1.25, 1.45, 1.23, False)])
+def test_pair_speed_check(ms_dq, ms_dkv, library_ms, ok):
+    """Phase 2's check on the fp32 backward pair: dQ + dK/dV no slower
+    than SDPA's whole backward in the same run."""
+    row = {"ms_dq": ms_dq, "ms_dkv": ms_dkv, "library_ms": library_ms}
+    assert chip_smoke._pair_no_slower_than_library(row) is ok

@@ -89,7 +89,7 @@ def test_unaligned_inputs_are_copied_and_counted():
     (torch.bfloat16, "flash_bwd_{}.cu", "ray_tpu_torch_flash_bwd_{}"),
 ])
 def test_backward_passes_route_each_dtype_to_its_kernel(pass_name, dtype, source, name):
-    """fp32 to the FMA kernels of flash_bwd.cu, bf16/fp16 to the wgmma
+    """fp32 to the 3xTF32 kernels of flash_bwd.cu, bf16/fp16 to the wgmma
     kernel of the pass's own source, which also takes the dtype code."""
     got_source, got_name, dtype_code = _kernels._backward_route(pass_name, dtype)
     assert (got_source, got_name) == (source.format(pass_name), name.format(pass_name))

@@ -50,12 +50,13 @@ counts set to 0 just before it and read just after; launches made in
 phase 2 do not count. No path may make the wrappers copy an input (the
 model's q, k, v are views that TMA reads in place). The kernels line
 sums the launches of phases 3-6, one entry for each kernel: a wrapper
-sends bf16/fp16 to a wgmma kernel and fp32 to a kernel of its own (the
-forward on the FMA units, the backward passes in 3xTF32 on the tensor
-cores), and counts the two apart. Phase 2 also requires two launches of
-the fp32 backward kernels to give bitwise-equal gradients, the bf16
-dK/dV kernel alone and the fp32 dQ + dK/dV pair to take no longer than
-SDPA's whole backward at GPT-2 124M's training shape.
+sends bf16/fp16 to a wgmma kernel and fp32 to a kernel of its own
+(every product in 3xTF32 on the tensor cores), and counts the two apart.
+Phase 2 also requires two launches of the fp32 forward and of the fp32
+backward kernels to give bitwise-equal results; the fp32 forward to take
+no longer than SDPA's fp32 forward at GPT-2 124M's shape; the bf16 dK/dV
+kernel alone and the fp32 dQ + dK/dV pair to take no longer than SDPA's
+whole backward at GPT-2 124M's training shape.
 
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
@@ -161,12 +162,14 @@ def _attended_pairs(tq, tk, causal):
     return n * (n + 1) // 2 + max(tq - tk, 0) * tk
 
 
-def _attention_bound_ms(b, t, h, d, dtype, causal, card):
+def _attention_bound_ms(b, tq, tk, h, d, dtype, causal, card):
+    """Bound of the forward: q [B,Tq,H,D] and k, v [B,Tk,H,D] read once,
+    O and the f32 LSE [B*H,Tq] written once; two products of length D per
+    attended pair (4*D operations)."""
     esize = torch.empty((), dtype=dtype).element_size()
-    nbytes = 4 * b * t * h * d * esize + b * h * t * 4  # q,k,v in; O, LSE out
-    pairs = t * (t + 1) // 2 if causal else t * t
+    nbytes = (2 * tq + 2 * tk) * b * h * d * esize + b * h * tq * 4
     t_bytes = nbytes / _peaks(card)[0] * 1e3
-    t_ops, by = _ops_ms(4 * b * h * d * pairs, dtype, card)
+    t_ops, by = _ops_ms(4 * b * h * d * _attended_pairs(tq, tk, causal), dtype, card)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else by)
 
 
@@ -193,9 +196,20 @@ def _pair_no_slower_than_library(row) -> bool:
     return row["ms_dq"] + row["ms_dkv"] <= row["library_ms"]
 
 
+def _forward_no_slower_than_library(row) -> bool:
+    """Whether a phase-2 forward row's kernel takes no longer than the
+    library's forward (SDPA's) timed in the same run."""
+    return row["ms"] <= row["library_ms"]
+
+
 # Tolerances of the kernel against its plain version.
-#  fp32: only the summation order differs (64-key tiles and FMA sums in
-#        the kernel, 256-key blocks and a matmul in the plain version).
+#  fp32: the kernel takes every product in 3xTF32 (hi.lo + lo.hi + hi.hi
+#        of the TF32 halves of each operand, ~2^-22 of each term dropped,
+#        the order of fp32's own rounding) and sums in another order
+#        (64-key tiles at head_dim 64, at 128 32-key tiles whose halves two
+#        warps take and merge, in the kernel; 256-key blocks and a matmul
+#        in the plain version). TF32 alone (hi.hi) misses these limits
+#        (tests/test_torch_fp32_split.py).
 #  bf16/fp16: p is rounded to the input type per tile, relative to the
 #        running max at that tile, and the tiles differ (64 vs 256 keys).
 _TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 1e-3),
@@ -208,28 +222,46 @@ def phase_kernels(card: str):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    cases = [(4, 1024, 12, 64, dt, causal)
+    # (B, Tq, Tk, H, D, dtype, causal)
+    cases = [(4, 1024, 1024, 12, 64, dt, causal)
              for causal in (True, False)
              for dt in (torch.bfloat16, torch.float16, torch.float32)]
     # The train steps' (GPT-2's, moe_small's), in both of their types.
-    cases += [(8, 1024, 12, 64, dt, True) for dt in (torch.bfloat16, torch.float32)]
-    cases += [(4, 2048, 12, 64, dt, True) for dt in (torch.bfloat16, torch.float32)]
-    cases.append((1, 2048, 32, 128, torch.bfloat16, True))
-    # Ragged edges (T not a multiple of the kernel's 64-row tiles) and the
-    # remaining type/head_dim instantiations, at small shapes.
-    cases += [(2, 100, 12, 64, torch.bfloat16, True),
-              (2, 100, 12, 64, torch.float32, False),
-              (1, 200, 4, 128, torch.float32, True),
-              (1, 200, 4, 128, torch.float16, False)]
+    cases += [(8, 1024, 1024, 12, 64, dt, True) for dt in (torch.bfloat16, torch.float32)]
+    cases += [(4, 2048, 2048, 12, 64, dt, True) for dt in (torch.bfloat16, torch.float32)]
+    cases.append((1, 2048, 2048, 32, 128, torch.bfloat16, True))
+    # Ragged edges (T not a multiple of the kernel's 64-row tiles), the
+    # remaining type/head_dim instantiations, and a causal Tq < Tk case,
+    # at small shapes.
+    cases += [(2, 100, 100, 12, 64, torch.bfloat16, True),
+              (2, 100, 100, 12, 64, torch.float32, False),
+              (1, 200, 200, 4, 128, torch.float32, True),
+              (1, 200, 200, 4, 128, torch.float16, False),
+              (2, 64, 200, 4, 64, torch.float32, True)]
     results = []
-    for b, t, h, d, dt, causal in cases:
+    repeated = False  # the fp32 run-to-run check is made once
+    for b, tq, tk, h, d, dt, causal in cases:
         # q/k/v as the model makes them: strided views of one fused
-        # [B, T, H, 3D] projection.
-        qkv = torch.randn((b, t, h, 3 * d), generator=gen, device="cuda",
+        # [B, T, H, 3D] projection (k and v of a [B, Tk, H, 2D] one where
+        # Tk differs).
+        qkv = torch.randn((b, tq, h, 3 * d), generator=gen, device="cuda",
                           dtype=torch.float32).to(dt)
         q, k, v = qkv.split(d, dim=-1)
+        if tk != tq:
+            k, v = torch.randn((b, tk, h, 2 * d), generator=gen,
+                               device="cuda").to(dt).split(d, dim=-1)
         o, lse = flash_fwd(q, k, v, causal=causal, return_lse=True)
         ro, rlse = flash_forward_plain(q, k, v, causal=causal, block_k=256)
+        if dt == torch.float32 and not repeated:
+            # No atomics and a fixed merge order: a second launch of the
+            # fp32 kernel gives the same bits.
+            o2, lse2 = flash_fwd(q, k, v, causal=causal, return_lse=True)
+            repeated = torch.equal(o, o2) and torch.equal(lse, lse2)
+            _check(repeated, f"two launches of the fp32 forward kernel differ at "
+                             f"{[b, tq, tk, h, d]} causal={causal}")
+            print(f"[kernels] flash_fwd fp32 {[b, tq, tk, h, d]} causal={causal}: "
+                  f"two launches bitwise equal")
+            del o2, lse2
         torch.cuda.synchronize()
         err_o = (o.float() - ro.float()).abs().max().item()
         err_lse = (lse - rlse).abs().max().item()
@@ -241,8 +273,8 @@ def phase_kernels(card: str):
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         library_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal), flush=flush)
-        bound_ms, bound_by = _attention_bound_ms(b, t, h, d, dt, causal, card)
-        row = {"shape": [b, t, h, d], "dtype": str(dt).split(".")[-1],
+        bound_ms, bound_by = _attention_bound_ms(b, tq, tk, h, d, dt, causal, card)
+        row = {"shape": [b, tq, tk, h, d], "dtype": str(dt).split(".")[-1],
                "causal": causal, "max_abs_err": err_o,
                "max_abs_err_lse": err_lse, "ms": ms,
                "bound_share": bound_ms / ms, "plain_ms": plain_ms,
@@ -893,8 +925,7 @@ def phase_moe(card: str):
 # kernel, the source under ray_tpu_torch/csrc that holds it, the line of
 # ray_tpu/ops/attention.py holding the TPU kernel it replaces). Each
 # wrapper sends bf16/fp16 to a wgmma kernel and fp32 to a kernel of its
-# own (the forward's on the FMA units, the backward passes' on the
-# tensor cores in 3xTF32), and counts its fp32 launches apart
+# own (on the tensor cores in 3xTF32), and counts its fp32 launches apart
 # (``launches_fp32``).
 _KERNELS = {
     "flash_fwd": ("flash_fwd", False, "flash_fwd.cu", 144),
@@ -935,6 +966,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = phase_setup()
     fwd_rows = phase_kernels(card)
+    fwd_row = _case(fwd_rows, [4, 1024, 1024, 12, 64], "float32")  # GPT-2 124M's
+    _check(_forward_no_slower_than_library(fwd_row),
+           f"the fp32 forward kernel ({fwd_row['ms']} ms) is slower than SDPA's fp32 "
+           f"forward ({fwd_row['library_ms']} ms) at GPT-2 124M's shape")
     bwd_rows = phase_kernels_bwd(card)
     bwd_row = _case(bwd_rows, [8, 1024, 1024, 12, 64], "bfloat16")  # GPT-2 124M's
     _check(bwd_row["ms_dkv"] <= bwd_row["library_ms"],
@@ -987,7 +1022,7 @@ def main() -> int:
     for kname, (wrapper, fp32, _, _) in _KERNELS.items():
         dtype = "float32" if fp32 else "bfloat16"
         if wrapper == "flash_fwd":
-            r = _case(fwd_rows, [4, 1024, 12, 64], dtype)
+            r = _case(fwd_rows, [4, 1024, 1024, 12, 64], dtype)
             err, key = r["max_abs_err"], ""
         else:
             r = _case(bwd_rows, [8, 1024, 1024, 12, 64], dtype)

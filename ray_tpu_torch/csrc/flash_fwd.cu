@@ -36,9 +36,37 @@
 // strides (no transposed copies) and fills rows past T with zeros. Tiles
 // wholly above the diagonal are skipped.
 //
-// fp32: flash_fwd_fp32_kernel keeps full fp32 math on the FMA units (a TF32
-// product would not match the reference; wgmma has no fp32 form): scalar
-// tile loads, one warp per 16 rows, the softmax one row at a time.
+// fp32: flash_fwd_fp32_kernel, every product on the tensor cores in
+// 3xTF32 (mma.sync.m16n8k8 TF32; hi.lo + lo.hi + hi.hi of the operands'
+// TF32 halves, in chains of two 8-deep steps promoted by f32 adds), with
+// the building blocks and tile layout of tf32x3.cuh, which the fp32
+// backward (flash_bwd.cu) shares. Its bound at GPT-2 124M's shape is
+// 3 x 6.4e9 operations at the 495 TFLOP/s dense TF32 peak, 0.039 ms, above
+// the bytes' 0.015 ms. One block of 8 warps per (batch*head, query tile),
+// heaviest causal tiles first; key tiles wholly above the diagonal are
+// skipped, masks apply only on diagonal and ragged tiles.
+//  - Copies. One thread issues TMA loads (4-D fp32 maps over the public
+//    [B, T, H, D] layout, 32-column boxes, 128-byte swizzle, zeros past
+//    T). The q tile lands once; K and V tiles come through a ring of 2
+//    stages, one mbarrier a stage and one __syncthreads a tile. Each tile
+//    is split once into hi and lo planes as it lands; the next tile by
+//    each warp as it finishes its products on this one.
+//  - Products. S = Q.K^T reads both tiles along rows (product_rows, its
+//    loop over the chains rolled: unrolled, it spills); O += P.V takes p,
+//    split in registers, as the A operand and reads V along columns, rows
+//    in the order 2t, 2t + 1 (product_cols).
+//  - Softmax. Each warp owns 16 query rows and keeps its own running max
+//    m, sum l and O over the keys it takes; p = expf(s * scale - m)
+//    (natural exp as the reference has it, no ex2.approx), masked p
+//    exactly 0, a row's max and sum reduced across the 4 lanes that hold
+//    it; O leaves with 16-byte stores.
+//  - Tiling (Fp32Smem). D = 64: 128 query rows a block, one warp each 16,
+//    over whole 64-key tiles; 192 KB of shared memory. D = 128: 64 rows,
+//    warps w and w + 4 sharing 16 and taking one half each of every 32-key
+//    tile, the two halves of a row merged in a fixed order at the end (so
+//    two launches give the same bits); 192 KB. On an H100 the 128-row
+//    tiling was the faster of the two at D = 64; at D = 128 it leaves room
+//    for 16-key tiles only and was the slower (PERF.md).
 //
 // Built by ray_tpu_torch/ops/_kernels.py with nvcc into a shared library
 // with a plain C interface; every launch returns cudaGetLastError().
@@ -48,9 +76,10 @@
 #include <cuda_runtime.h>
 
 #include <climits>
-#include <cstddef>
+#include <type_traits>
 
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -278,172 +307,253 @@ cudaError_t launch_tc(const Args& a, int batch, int dtype, unsigned int n_blocks
 }
 
 // ---------------------------------------------------------------------------
-// fp32: the FMA units
+// fp32: 3xTF32 on mma.sync (tf32x3.cuh), TMA, softmax in registers
 // ---------------------------------------------------------------------------
 
-constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = kBlockM / kWarps;  // 16
-
-constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
-
-// Shared memory: q, k, v and p tiles; the odd pitch of the q and k tiles
-// staggers the column reads across banks.
+// The fp32 tiling and key tiles by head_dim, and the shared memory: every
+// plane 1024-byte aligned (the swizzle's period), q hi, q lo; kStages
+// stages of K hi, K lo, V hi, V lo; the barriers (q, then one per stage).
+//  D = 64: 128 query rows a block, each warp owning 16 of them over whole
+//    64-key tiles; 2 x 32 KB + 2 stages x 4 x 16 KB = 192 KB.
+//  D = 128: 64 query rows, warps w and w + 4 owning the same 16 and taking
+//    one half each of every 32-key tile (128 rows would leave room for
+//    16-key tiles only); 2 x 32 KB + 2 stages x 4 x 16 KB = 192 KB.
+// After the loop the planes hold the epilogue: each part's O
+// [kSplit][kOuter][D + 8] f32, its row max and sum [kSplit][kOuter] (m, l),
+// and the rows' denominators [kOuter].
 template <int D>
-struct Fp32Layout {
-  static constexpr int kLdQK = D + 1;
-  static constexpr int kLdV = D;
-  static constexpr int kLdP = kBlockN;
-  static constexpr size_t kQ = 0;
-  static constexpr size_t kK = align128(kQ + sizeof(float) * kBlockM * kLdQK);
-  static constexpr size_t kV = align128(kK + sizeof(float) * kBlockN * kLdQK);
-  static constexpr size_t kP = align128(kV + sizeof(float) * kBlockN * kLdV);
-  static constexpr size_t kBytes = align128(kP + sizeof(float) * kBlockM * kLdP);
+struct Fp32Smem {
+  using Tile = std::conditional_t<D == 64, tf32x3::Tiling<128, 1>, tf32x3::Tiling<64, 2>>;
+  static constexpr int kKeys = D == 64 ? 64 : 32;
+  static constexpr int kQPlane = Tile::kOuter * D * 4;
+  static constexpr int kKvPlane = kKeys * D * 4;
+  static constexpr int kStage0 = 2 * kQPlane;
+  static constexpr int kStageBytes = 4 * kKvPlane;
+  static constexpr int kBars = kStage0 + kStages * kStageBytes;
+  static constexpr int kBytes = kBars + 8 * (1 + kStages);
+  static constexpr int kAlloc = kBytes + 1024;  // slack to align the base
+  static constexpr int kPitch = D + 8;
+  static constexpr int kStats = Tile::kSplit * Tile::kOuter * kPitch * 4;
+  static constexpr int kDenom = kStats + Tile::kSplit * Tile::kOuter * 8;
+  static_assert(kDenom + Tile::kOuter * 4 <= kBars, "the epilogue fits in the tile planes");
 };
 
+// One block of 8 warps per (batch*head, query tile), looping over the key
+// tiles at or below the diagonal. Each warp owns 16 query rows and takes
+// 1/kSplit of every key tile, with its own running max, sum and O; the
+// parts of a row meet in the epilogue.
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_fp32_kernel(const Args a) {
-  using L = Fp32Layout<D>;
-  constexpr int kCols = D / 32;  // accumulator columns each lane owns
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem + L::kQ);
-  float* ks = reinterpret_cast<float*>(smem + L::kK);
-  float* vs = reinterpret_cast<float*>(smem + L::kV);
+__global__ void __launch_bounds__(tf32x3::kThreads, 1)
+    flash_fwd_fp32_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map, const Args a) {
+  using L = Fp32Smem<D>;
+  using Tile = typename L::Tile;
+  constexpr int R = L::kKeys, kOuter = Tile::kOuter, kSplit = Tile::kSplit;
+  constexpr int kBlocks = R / 8 / kSplit;  // 8-key blocks of S a warp holds
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = tf32x3::aligned_smem(smem_raw);
+  const uint32_t base = hopper::smem_addr(smem);
+  const uint32_t q_s = base, q_bar = base + L::kBars;
+  auto stage = [&](int st) { return L::kStage0 + st * L::kStageBytes; };  // K; V 2 planes on
+  auto full = [&](int st) { return base + L::kBars + 8 * (1 + st); };
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int part = warp / Tile::kGroups;  // which 1/kSplit of each key tile
+  const int col0 = part * (R / kSplit);   // the warp's first key in a tile
   // Longest causal rows first, so the heaviest blocks start earliest.
   const int qt = a.n_qtiles - 1 - static_cast<int>(blockIdx.x % a.n_qtiles);
   const int bh = static_cast<int>(blockIdx.x / a.n_qtiles);
-  const int b = bh / a.heads;
-  const int h = bh % a.heads;
-  const int m0 = qt * kBlockM;
+  const int b = bh / a.heads, h = bh % a.heads;
+  const int m0 = qt * kOuter;
+  const int n_end = a.causal ? min(a.tk, m0 + kOuter) : a.tk;
+  const int n_tiles = (n_end + R - 1) / R;
 
-  const float* qg = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const float* kg = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const float* vg = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
-  float* og = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
-
-  for (int i = tid; i < kBlockM * D; i += kThreads) {
-    const int r = i / D, c = i % D, t = m0 + r;
-    qs[r * L::kLdQK + c] = t < a.tq ? qg[t * a.q_st + c] : 0.f;
+  // Thread 0 copies key tile ``tile`` (K and V) into stage st, if it exists.
+  auto load_kv = [&](int st, int tile) {
+    if (tid == 0 && tile < n_tiles) {
+      const uint32_t dst = base + stage(st);
+      hopper::mbar_expect_tx(full(st), 2 * L::kKvPlane);
+      tf32x3::tma_tile<D, R>(dst, &k_map, full(st), b, h, tile * R);
+      tf32x3::tma_tile<D, R>(dst + 2 * L::kKvPlane, &v_map, full(st), b, h, tile * R);
+    }
+  };
+  if (tid == 0) {
+    hopper::mbar_init(q_bar, 1);
+    for (int st = 0; st < kStages; ++st) hopper::mbar_init(full(st), 1);
+    hopper::mbar_fence_init();
+    hopper::mbar_expect_tx(q_bar, L::kQPlane);
+    tf32x3::tma_tile<D, kOuter>(q_s, &q_map, q_bar, b, h, m0);
   }
+  for (int st = 0; st < kStages; ++st) load_kv(st, st);
 
-  float* ps = reinterpret_cast<float*>(smem + L::kP) + warp * kRowsPerWarp * L::kLdP;
-  const int row0 = m0 + warp * kRowsPerWarp;
+  // This thread's rows of the tile: row_in and row_in + 8.
+  const int row_in = 16 * (warp & (Tile::kGroups - 1)) + g;
+  const tf32x3::LaneOffsets<Tile> off(warp, lane);
+  float o[D / 8][4];
+  tf32x3::zero(o);
+  float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
+  __syncthreads();  // the barriers are initialised
 
-  float acc[kRowsPerWarp][kCols];
-  float m_i[kRowsPerWarp];
-  float l_i[kRowsPerWarp];
+  hopper::mbar_wait(q_bar, 0);
+  tf32x3::split_tile<L::kQPlane>(smem);
+  hopper::mbar_wait(full(0), 0);
+  tf32x3::split_tile<L::kKvPlane>(smem + stage(0));
+  tf32x3::split_tile<L::kKvPlane>(smem + stage(0) + 2 * L::kKvPlane);
+  __syncthreads();
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kStages, n0 = it * R;
+    const uint32_t k_s = base + stage(st) + col0 * 128, v_s = k_s + 2 * L::kKvPlane;
+
+    float s[kBlocks][4];  // S = Q.K^T over the warp's keys of this tile
+    tf32x3::product_rows<D, R, L::kQPlane, L::kKvPlane, true>(s, q_s, k_s, off);
+
+    // The online softmax in registers: the scores scaled and masked, the
+    // row max over the 4 lanes that hold the row, s becomes p, this
+    // thread's share of the row sum and the O accumulator are rescaled.
+    const bool edge = (a.causal && n0 + R - 1 > m0) || n0 + R > a.tk;
+    auto masked = [&](int kb, int i) {
+      const int col = n0 + col0 + 8 * kb + 2 * t + (i & 1), row = m0 + row_in + 8 * (i >> 1);
+      return col >= a.tk || (a.causal && row < col);
+    };
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m_i[r] = kMaskValue;
-    l_i[r] = 0.f;
+    for (int kb = 0; kb < kBlocks; ++kb)
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
-  }
+      for (int i = 0; i < 4; ++i) {
+        float x = s[kb][i] * a.scale;
+        if (edge && masked(kb, i)) x = kMaskValue;
+        s[kb][i] = x;
+        mx[i >> 1] = fmaxf(mx[i >> 1], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
+      corr[half] = expf(m[half] - mx[half]);
+      m[half] = mx[half];
+      l[half] *= corr[half];
+    }
+#pragma unroll
+    for (int kb = 0; kb < kBlocks; ++kb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float p = expf(s[kb][i] - m[i >> 1]);
+        if (edge && masked(kb, i)) p = 0.f;
+        s[kb][i] = p;
+        l[i >> 1] += p;
+      }
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[nb][i] *= corr[i >> 1];
 
-  const int n_end = a.causal ? min(a.tk, m0 + kBlockM) : a.tk;
-  for (int n0 = 0; n0 < n_end; n0 += kBlockN) {
-    __syncthreads();  // the previous tile is consumed (and the q tile written)
-    for (int i = tid; i < kBlockN * D; i += kThreads) {
-      const int r = i / D, c = i % D, t = n0 + r;
-      const bool in = t < a.tk;
-      ks[r * L::kLdQK + c] = in ? kg[t * a.k_st + c] : 0.f;
-      vs[r * L::kLdV + c] = in ? vg[t * a.v_st + c] : 0.f;
+    tf32x3::product_cols<D, R, L::kKvPlane>(o, s, v_s, off);  // O += P.V
+
+    // The next key tile, once it lands, is split by each warp as it
+    // finishes this one's products; the barrier then frees this stage.
+    if (it + 1 < n_tiles) {
+      const int nx = (it + 1) % kStages;
+      hopper::mbar_wait(full(nx), ((it + 1) / kStages) & 1);
+      tf32x3::split_tile<L::kKvPlane>(smem + stage(nx));
+      tf32x3::split_tile<L::kKvPlane>(smem + stage(nx) + 2 * L::kKvPlane);
+      tf32x3::fence_proxy_async();
     }
     __syncthreads();
-
-    // Scores of this warp's 16 rows against the tile's 64 keys; lane j
-    // holds keys j and j + 32 of every row.
-    float s[kRowsPerWarp][2];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) s[r][0] = s[r][1] = 0.f;
-    const float* qw = qs + warp * kRowsPerWarp * L::kLdQK;
-#pragma unroll 4
-    for (int kk = 0; kk < D; ++kk) {
-      const float k0 = ks[lane * L::kLdQK + kk];
-      const float k1 = ks[(lane + 32) * L::kLdQK + kk];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float qv = qw[r * L::kLdQK + kk];
-        s[r][0] = fmaf(qv, k0, s[r][0]);
-        s[r][1] = fmaf(qv, k1, s[r][1]);
-      }
-    }
-
-    // Online softmax, one row at a time across the warp.
-    float corr[kRowsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int qi = row0 + r;
-      float x[2];
-      bool ok[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kj = n0 + lane + 32 * j;
-        ok[j] = kj < a.tk && (!a.causal || qi >= kj);
-        x[j] = ok[j] ? s[r][j] * a.scale : kMaskValue;
-      }
-      float mx = fmaxf(x[0], x[1]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_i[r], mx);
-      const float p0 = ok[0] ? expf(x[0] - m_new) : 0.f;
-      const float p1 = ok[1] ? expf(x[1] - m_new) : 0.f;
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      corr[r] = expf(m_i[r] - m_new);
-      l_i[r] = l_i[r] * corr[r] + sum;
-      m_i[r] = m_new;
-      ps[r * L::kLdP + lane] = p0;
-      ps[r * L::kLdP + lane + 32] = p1;
-    }
-    __syncwarp();
-
-    // acc = acc * corr + p . v
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[r][c] *= corr[r];
-    }
-#pragma unroll 4
-    for (int j = 0; j < kBlockN; ++j) {
-      float vv[kCols];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) vv[c] = vs[j * L::kLdV + lane + 32 * c];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float pj = ps[r * L::kLdP + j];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[r][c] = fmaf(pj, vv[c], acc[r][c]);
-      }
-    }
+    load_kv(st, it + kStages);
   }
 
+  // The parts of each row meet in shared memory (the tiles are consumed)
+  // and merge in a fixed order, part 0 first:
+  //   m = max_i m_i, l = sum_i l_i e^(m_i - m),
+  //   O = (sum_i O_i e^(m_i - m)) / max(l, 1e-30), LSE = m + log(max(l, 1e-30)).
+  // With one part (D = 64) the factor e^(m - m) is exactly 1.
+  float2* stats = reinterpret_cast<float2*>(smem + L::kStats);  // [kSplit][kOuter]
+  float* denom = reinterpret_cast<float*>(smem + L::kDenom);    // [kOuter]
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int t = row0 + r;
-    if (t >= a.tq) continue;
-    const float denom = fmaxf(l_i[r], 1e-30f);
+  for (int half = 0; half < 2; ++half) {
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
+    if (t == 0) stats[part * kOuter + row_in + 8 * half] = make_float2(m[half], l[half]);
+  }
+  __syncthreads();
+  float factor[2];
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) og[t * a.o_st + lane + 32 * c] = acc[r][c] / denom;
-    if (a.lse != nullptr && lane == 0)
-      a.lse[static_cast<long long>(bh) * a.tq + t] = m_i[r] + logf(denom);
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_in + 8 * half;
+    float m_row = stats[row].x;
+#pragma unroll
+    for (int i = 1; i < kSplit; ++i) m_row = fmaxf(m_row, stats[i * kOuter + row].x);
+    float l_row = 0.f;
+#pragma unroll
+    for (int i = 0; i < kSplit; ++i) {
+      const float2 mi = stats[i * kOuter + row];
+      const float e = expf(mi.x - m_row);
+      l_row += mi.y * e;
+      if (i == part) factor[half] = e;
+    }
+    if (part == 0 && t == 0) {
+      const float den = fmaxf(l_row, 1e-30f);
+      denom[row] = den;
+      if (a.lse != nullptr && m0 + row < a.tq)
+        a.lse[static_cast<long long>(bh) * a.tq + m0 + row] = m_row + logf(den);
+    }
+  }
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[nb][i] *= factor[i >> 1];
+  float* red = reinterpret_cast<float*>(smem);
+  tf32x3::stage_partial<Tile, D>(o, red, warp, lane);
+  __syncthreads();
+  float* og = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
+  for (int i = tid; i < kOuter * D / 4; i += tf32x3::kThreads) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    if (m0 + r >= a.tq) continue;
+    float4 sum = *reinterpret_cast<const float4*>(red + r * L::kPitch + c);
+#pragma unroll
+    for (int j = 1; j < kSplit; ++j) {
+      const float4 y = *reinterpret_cast<const float4*>(red + (j * kOuter + r) * L::kPitch + c);
+      sum = make_float4(sum.x + y.x, sum.y + y.y, sum.z + y.z, sum.w + y.w);
+    }
+    const float den = denom[r];
+    *reinterpret_cast<float4*>(og + (m0 + r) * a.o_st + c) =
+        make_float4(sum.x / den, sum.y / den, sum.z / den, sum.w / den);
   }
 }
 
+// Builds the q, k, v maps (boxes of the query tile's and the key tile's
+// rows) and launches one block per (batch*head, query tile).
 template <int D>
-cudaError_t launch_fp32(const Args& a, unsigned int n_blocks, cudaStream_t stream) {
-  constexpr size_t smem = Fp32Layout<D>::kBytes;
+cudaError_t launch_fp32(Args a, int batch, cudaStream_t stream) {
+  using L = Fp32Smem<D>;
+  constexpr int kRows = L::Tile::kOuter;
+  a.n_qtiles = (a.tq + kRows - 1) / kRows;
+  const long long n_blocks = static_cast<long long>(a.n_qtiles) * batch * a.heads;
+  if (n_blocks > INT_MAX) return cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {a.q, a.k, a.v};
+  const long long strides[3][3] = {{a.q_sb, a.q_st, a.q_sh},
+                                   {a.k_sb, a.k_st, a.k_sh},
+                                   {a.v_sb, a.v_st, a.v_sh}};
+  const int seq[3] = {a.tq, a.tk, a.tk};
+  const int rows[3] = {kRows, L::kKeys, L::kKeys};
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err = tf32x3::make_map(&maps[i], ptrs[i], batch, seq[i], a.heads, D,
+                                             strides[i][0], strides[i][1], strides[i][2],
+                                             rows[i]);
+    if (err != cudaSuccess) return err;
+  }
+  constexpr int smem = L::kAlloc;
   auto kernel = flash_fwd_fp32_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<n_blocks, kThreads, smem, stream>>>(a);
+  kernel<<<static_cast<unsigned int>(n_blocks), tf32x3::kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], a);
   return cudaGetLastError();
 }
 
@@ -451,7 +561,7 @@ template <int D>
 cudaError_t launch_d(const Args& a, int batch, int dtype, unsigned int n_blocks,
                      cudaStream_t stream) {
   switch (dtype) {
-    case 0: return launch_fp32<D>(a, n_blocks, stream);
+    case 0: return launch_fp32<D>(a, batch, stream);
     case 1: return launch_tc<__half, D>(a, batch, dtype, n_blocks, stream);
     case 2: return launch_tc<__nv_bfloat16, D>(a, batch, dtype, n_blocks, stream);
     default: return cudaErrorInvalidValue;
@@ -461,9 +571,9 @@ cudaError_t launch_d(const Args& a, int batch, int dtype, unsigned int n_blocks,
 }  // namespace
 
 // dtype: 0 float32, 1 float16, 2 bfloat16. Strides are in elements; the
-// head_dim axis must be contiguous. For fp16/bf16 q, k and v must have a
-// 16-byte aligned base and strides that are multiples of 16 bytes (TMA),
-// and o must be contiguous (16-byte stores). Returns a cudaError_t (0 on
+// head_dim axis must be contiguous. q, k and v must have a 16-byte aligned
+// base and strides that are multiples of 16 bytes (TMA), and o must be
+// contiguous (16-byte stores). Returns a cudaError_t (0 on
 // success).
 extern "C" int ray_tpu_torch_flash_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse,

@@ -15,15 +15,14 @@ PyTorch's current stream, raises if the C function reports a CUDA error
 counts its launches in a plain int attribute (``flash_fwd.launches``,
 ``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``). bf16/fp16 run on
 wgmma kernels (``flash_fwd.cu``, ``flash_bwd_dq.cu``,
-``flash_bwd_dkv.cu``); fp32 runs on its own kernels, whose launches each
-wrapper also counts apart (``launches_fp32``): the forward on the FMA
-units (``flash_fwd.cu``), both backward passes on the tensor cores in
-3xTF32 (``flash_bwd.cu``). Every kernel but the fp32 forward reads q, k,
-v (and dO) by TMA, which needs a 16-byte aligned base and strides that
-are multiples of 16 bytes (``tma_aligned``); an input that breaks the
-rule is copied first, and the copies are counted too
-(``flash_fwd.copies``, ``flash_bwd_dq.copies``,
-``flash_bwd_dkv.copies``).
+``flash_bwd_dkv.cu``); fp32 runs on kernels of its own, every product on
+the tensor cores in 3xTF32 (the forward in ``flash_fwd.cu``, both backward
+passes in ``flash_bwd.cu``, sharing ``tf32x3.cuh``), whose launches each
+wrapper also counts apart (``launches_fp32``). Every kernel reads q, k, v
+(and dO) by TMA, which needs a 16-byte aligned base and strides that are
+multiples of 16 bytes (``tma_aligned``); an input that breaks the rule is
+copied first, and the copies are counted too (``flash_fwd.copies``,
+``flash_bwd_dq.copies``, ``flash_bwd_dkv.copies``).
 """
 
 from __future__ import annotations
@@ -215,8 +214,7 @@ def flash_fwd(q, k, v, *, causal: bool, return_lse: bool):
            if return_lse else None)
     if o.numel() == 0:
         return o, lse
-    if q.dtype != torch.float32:
-        q, k, v = _tma_inputs(flash_fwd, q, k, v)
+    q, k, v = _tma_inputs(flash_fwd, q, k, v)
     _launch("flash_fwd.cu", "ray_tpu_torch_flash_fwd", q,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if lse is not None else None,

@@ -196,7 +196,7 @@ def test_attention_bounds_count_3xtf32_for_fp32(dtype):
         return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else by
 
     fwd_bytes = 4 * b * t * h * d * esize + b * h * t * 4
-    got = chip_smoke._attention_bound_ms(b, t, h, d, dtype, True, _H100)
+    got = chip_smoke._attention_bound_ms(b, t, t, h, d, dtype, True, _H100)
     assert got == pytest.approx(want(fwd_bytes, 4 * b * h * d * pairs), rel=1e-12)
 
     for dq, products in ((True, 3), (False, 4)):
@@ -227,3 +227,26 @@ def test_pair_speed_check(ms_dq, ms_dkv, library_ms, ok):
     than SDPA's whole backward in the same run."""
     row = {"ms_dq": ms_dq, "ms_dkv": ms_dkv, "library_ms": library_ms}
     assert chip_smoke._pair_no_slower_than_library(row) is ok
+
+
+@pytest.mark.parametrize("ms,library_ms,ok", [
+    (0.18, 0.30, True), (0.30, 0.30, True), (0.31, 0.30, False), (0.46, 0.30, False)])
+def test_forward_speed_check(ms, library_ms, ok):
+    """Phase 2's check on the fp32 forward: the kernel no slower than
+    SDPA's fp32 forward in the same run."""
+    row = {"ms": ms, "library_ms": library_ms}
+    assert chip_smoke._forward_no_slower_than_library(row) is ok
+
+
+@pytest.mark.parametrize("tq,tk,causal", [(64, 200, True), (200, 64, True), (100, 30, False)])
+def test_forward_bound_counts_tq_and_tk_apart(tq, tk, causal):
+    """Where Tq and Tk differ (phase 2's causal Tq < Tk case), the forward
+    bound reads q and writes O and LSE at Tq, reads k and v at Tk, and
+    counts the attended pairs the mask keeps."""
+    b, h, d, dtype = 2, 4, 64, torch.float32
+    nbytes = (2 * tq + 2 * tk) * b * h * d * 4 + b * h * tq * 4
+    ops = 4 * b * h * d * chip_smoke._attended_pairs(tq, tk, causal)
+    t_bytes, t_ops = nbytes / 3.35e12 * 1e3, 3 * ops / 495e12 * 1e3
+    got = chip_smoke._attention_bound_ms(b, tq, tk, h, d, dtype, causal, _H100)
+    assert got[0] == pytest.approx(max(t_bytes, t_ops), rel=1e-12)
+    assert got[1] == ("bytes" if t_bytes >= t_ops else "operations (3xTF32)")

@@ -1,11 +1,15 @@
-"""3xTF32 on the CPU: the fp32 backward kernels (ray_tpu_torch/csrc/flash_bwd.cu)
+"""3xTF32 on the CPU: the fp32 kernels (ray_tpu_torch/csrc/flash_fwd.cu's
+fp32 forward, flash_bwd.cu's backward passes, both built on tf32x3.cuh)
 take every fp32 product on the tensor cores as hi.lo + lo.hi + hi.hi of the
 TF32 halves of its operands. Here that split is emulated with numpy, the
 products of the backward pass are taken that way, and the gradients are
 held against the plain fp32 version at chip_smoke's unchanged fp32 limits,
 which TF32 alone (hi.hi) must fail. A second emulation truncates each
 tensor-core accumulation as the card's does and tells the kernels' chain
-layout from one that missed the fp32 limit on an H100."""
+layout from one that missed the fp32 limit on an H100. The forward is
+emulated tile by tile as the kernel runs it (online softmax per key tile,
+at head_dim 128 the two halves of each key tile merged) and held to
+chip_smoke's forward limits."""
 
 import math
 
@@ -94,15 +98,16 @@ def _mma(c, a, b, bits):
     return _round_to_zero(cut + np.trunc(c / unit) * unit)
 
 
-def _mm_chained(a, b, chain, small_first, bits):
-    """a @ b in 3xTF32 as flash_bwd.cu's mma.sync chains take it: every
-    ``chain`` 8-deep steps start from zero, each product an ``_mma``; with
-    ``small_first`` the chain's hi.lo and lo.hi come before its hi.hi (the
-    kernels' order, chain 2), else each step's three products in turn; each
-    chain is added to the running sum in f32, to nearest."""
+def _mm_chained(a, b, chain, small_first, bits, acc=None):
+    """a @ b (acc + a @ b with ``acc``) in 3xTF32 as the kernels' mma.sync
+    chains take it: every ``chain`` 8-deep steps start from zero, each
+    product an ``_mma``; with ``small_first`` the chain's hi.lo and lo.hi
+    come before its hi.hi (the kernels' order, chain 2), else each step's
+    three products in turn; each chain is added to the running sum in f32,
+    to nearest."""
     (ah, al), (bh, bl) = split(a), split(b)
     depth = a.shape[-1]
-    total = None
+    total = acc
     for k0 in range(0, depth, 8 * chain):
         steps = [slice(k, k + 8) for k in range(k0, min(depth, k0 + 8 * chain), 8)]
         if small_first:
@@ -110,7 +115,8 @@ def _mm_chained(a, b, chain, small_first, bits):
                      + [(ah, bh, s) for s in steps])
         else:
             terms = [t for s in steps for t in ((ah, bl, s), (al, bh, s), (ah, bh, s))]
-        d = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
+        d = np.zeros(np.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+                     + (a.shape[-2], b.shape[-1]), np.float32)
         for x, y, s in terms:
             d = _mma(d, x[..., s], y[..., s, :], bits)
         total = d if total is None else total + d
@@ -191,3 +197,93 @@ def test_truncating_accumulation_tells_the_chain_layouts_apart(b, tq, tk, h, d, 
         elif in_turn_fails:
             assert not all(chip_smoke._grad_within(e, f32) for e in errs), errs
     assert tile["in_turn"] > 1.5 * tile["built"], tile
+
+
+def _forward(q, k, v, causal, mm_rows, mm_cols):
+    """flash_fwd.cu's fp32 forward on the CPU, tile by tile, in its tiling:
+    at head_dim 64 128-row query tiles over whole 64-key tiles; at 128
+    64-row query tiles over 32-key tiles split into two parts. Each part
+    keeps its own running max, sum and O (S = mm_rows(q, k^T); O =
+    mm_cols(p, v, O * corr)) over key tiles up to the causal diagonal; the
+    parts merge as the kernel merges them (part 0 first). q, k, v
+    [B, T, H, D] f32; returns (O [B, Tq, H, D], LSE [B*H, Tq, 1])."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    rows_q, r, parts = (128, 64, 1) if d == 64 else (64, 32, 2)
+    heads = lambda x: x.permute(0, 2, 1, 3).numpy()  # noqa: E731  [B, H, T, D]
+    qf, kf, vf = heads(q), heads(k), heads(v)
+    kf, vf = (np.pad(x, ((0, 0), (0, 0), (0, -tk % r), (0, 0))) for x in (kf, vf))
+    scale, neg = np.float32(1.0 / math.sqrt(d)), np.float32(-1e30)
+    out = np.zeros((b, h, tq, d), np.float32)
+    lse = np.zeros((b, h, tq, 1), np.float32)
+    for m0 in range(0, tq, rows_q):
+        rows = np.arange(m0, min(m0 + rows_q, tq))
+        qt = np.ascontiguousarray(
+            np.broadcast_to(qf[:, :, None, rows], (b, h, parts, len(rows), d)))
+        m = np.full((b, h, parts, len(rows), 1), neg, np.float32)
+        l = np.zeros_like(m)
+        o = np.zeros((b, h, parts, len(rows), d), np.float32)
+        for n0 in range(0, min(tk, m0 + rows_q) if causal else tk, r):
+            cols = n0 + np.arange(r).reshape(parts, 1, r // parts)  # [part, 1, key]
+            keep = (cols < tk) & ((rows[:, None] >= cols) if causal else True)
+            kt, vt = (x[:, :, n0:n0 + r].reshape(b, h, parts, r // parts, d) for x in (kf, vf))
+            x = np.where(keep, mm_rows(qt, kt.swapaxes(-1, -2)) * scale, neg)
+            m_new = np.maximum(m, x.max(-1, keepdims=True))
+            corr = np.exp(m - m_new)
+            p = np.where(keep, np.exp(x - m_new), np.float32(0))
+            l = l * corr + p.sum(-1, keepdims=True)
+            o = mm_cols(p, vt, o * corr)
+            m = m_new
+        mx = m.max(2)
+        e = [np.exp(m[:, :, i] - mx) for i in range(parts)]
+        den, acc = np.float32(0), np.float32(0)
+        for i in range(parts):
+            den, acc = den + l[:, :, i] * e[i], acc + o[:, :, i] * e[i]
+        den = np.maximum(den, np.float32(1e-30))
+        out[:, :, rows] = acc / den
+        lse[:, :, rows] = mx + np.log(den)
+    return (torch.from_numpy(out).permute(0, 2, 1, 3),
+            torch.from_numpy(lse).reshape(b * h, tq, 1))
+
+
+def _forward_errors(b, tq, tk, h, d, causal, mm_rows, mm_cols):
+    """The largest |O| and |LSE| errors of ``_forward`` against
+    flash_forward_plain (256-key blocks, as chip_smoke runs it) on
+    standard normal q, k, v from a seed."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, d), dtype=np.float32))
+               for t in (tq, tk, tk))
+    want_o, want_lse = flash_forward_plain(q, k, v, causal=causal, block_k=256)
+    got_o, got_lse = _forward(q, k, v, causal, mm_rows, mm_cols)
+    return ((got_o - want_o).abs().max().item(), (got_lse - want_lse).abs().max().item())
+
+
+_FORWARD_SHAPES = [(1, 192, 192, 2, 64, True), (1, 100, 100, 2, 64, False),
+                   (1, 64, 100, 1, 128, True)]
+
+
+@pytest.mark.parametrize("bits", [24, 23])
+@pytest.mark.parametrize("b,tq,tk,h,d,causal", _FORWARD_SHAPES)
+def test_forward_in_3xtf32_chains_meets_the_fp32_limits(b, tq, tk, h, d, causal, bits):
+    """The fp32 forward's products in the kernel's chain layout (2-step
+    chains, small products first), every tensor-core accumulation
+    truncated at ``bits`` kept bits: O and LSE within chip_smoke's
+    unchanged fp32 limits of the plain version."""
+    err_o, err_lse = _forward_errors(
+        b, tq, tk, h, d, causal,
+        lambda x, y: _mm_chained(x, y, 2, True, bits),
+        lambda p, y, acc: _mm_chained(p, y, 2, True, bits, acc=acc))
+    tol_o, tol_lse = chip_smoke._TOL[torch.float32]
+    assert err_o <= tol_o and err_lse <= tol_lse, (err_o, err_lse)
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d,causal", _FORWARD_SHAPES)
+def test_forward_in_tf32_alone_misses_the_fp32_limits(b, tq, tk, h, d, causal):
+    """The same forward with each product as hi.hi alone (TF32) misses at
+    least one of the fp32 limits: 3xTF32 is what meets them."""
+    err_o, err_lse = _forward_errors(
+        b, tq, tk, h, d, causal,
+        lambda x, y: _mm(x, y, "tf32"),
+        lambda p, y, acc: acc + _mm(p, y, "tf32"))
+    tol_o, tol_lse = chip_smoke._TOL[torch.float32]
+    assert err_o > tol_o or err_lse > tol_lse, (err_o, err_lse)

@@ -48,7 +48,7 @@ def _fused_qkv(d, dtype):
 
 
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_tma_reads_the_models_fused_qkv_views_in_place(d, dtype):
     """q, k, v as the model makes them: views of one [B, T, H, 3D]
     projection at offsets 0, D, 2D with strides 3D, H*3D, T*H*3D."""
@@ -74,12 +74,13 @@ def test_tma_refuses_what_is_not_16_byte_aligned(case):
 
 def test_unaligned_inputs_are_copied_and_counted():
     counter = types.SimpleNamespace(copies=0)
-    good = _fused_qkv(64, torch.bfloat16)[1]
-    bad = torch.zeros((2, 8, 4, 65), dtype=torch.bfloat16)[..., :64]
-    out_good, out_bad = _kernels._tma_inputs(counter, good, bad)
-    assert out_good is good
-    assert counter.copies == 1
-    assert _kernels.tma_aligned(out_bad) and torch.equal(out_bad, bad)
+    for n, dtype in enumerate((torch.bfloat16, torch.float32), start=1):
+        good = _fused_qkv(64, dtype)[1]
+        bad = torch.zeros((2, 8, 4, 65), dtype=dtype)[..., :64]
+        out_good, out_bad = _kernels._tma_inputs(counter, good, bad)
+        assert out_good is good
+        assert counter.copies == n
+        assert _kernels.tma_aligned(out_bad) and torch.equal(out_bad, bad)
 
 
 @pytest.mark.parametrize("pass_name", ["dq", "dkv"])
@@ -115,6 +116,29 @@ def test_dkv_wrapper_counts_the_inputs_it_copies():
         assert _kernels.tma_aligned(out[3]) and torch.equal(out[3], bad)
     finally:
         wrapper.copies = before
+
+
+def test_fwd_wrapper_reads_fp32_by_tma(monkeypatch):
+    """flash_fwd hands fp32 q, k, v to its kernel as the TMA kernels take
+    them: the model's fused-qkv views in place, an input TMA cannot read
+    as it lies copied, and the copy counted. The C call is recorded, not
+    made (the CUDA checks are passed over: no card here)."""
+    wrapper = _kernels.flash_fwd
+    calls = []
+    monkeypatch.setattr(_kernels, "_check_attention_inputs",
+                        lambda name, q, k, v: (*q.shape, k.shape[1]))
+    monkeypatch.setattr(_kernels, "_launch", lambda source, name, t, *args: calls.append(args))
+    for counter in ("launches", "launches_fp32", "copies"):
+        monkeypatch.setattr(wrapper, counter, 0)
+    q, k, v = _fused_qkv(64, torch.float32)
+    wrapper(q, k, v, causal=True, return_lse=True)
+    assert calls[0][:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert wrapper.copies == 0
+    bad = torch.zeros((2, 100, 12, 65), dtype=torch.float32)[..., :64]
+    wrapper(q, k, bad, causal=True, return_lse=True)
+    assert calls[1][:2] == (q.data_ptr(), k.data_ptr()) and calls[1][2] != bad.data_ptr()
+    assert wrapper.copies == 1
+    assert wrapper.launches == wrapper.launches_fp32 == 2
 
 
 _PTXAS_LOG = """\

@@ -45,11 +45,29 @@ Phases, in order; any failed check exits non-zero:
                differently in the two runs; losses and grad norms must
                match as stated at _OPTAX_STEP_TOL.
 
-Each path of phases 3-6 is driven with the kernels' launch and copy
+  7. parallel — the main path, part 5: the sharded paths
+               (ray_tpu_torch.parallel, DeviceMesh and DTensor). (a) world
+               size 1 on NCCL: phase 5's GPT-2 124M through
+               make_train_step(mesh=MeshConfig().build()) with
+               shard_params: one fp32 step's loss and gradients against
+               phase 5's unsharded ones (1e-6 of each leaf's max; bitwise
+               equality printed), 6 bf16 steps of FusedClipAdamW (the loss
+               falls, each kernel once per layer per step), the step's
+               host time beside phase 5's. (b) world size 2, two ranks on
+               this one card over gloo (the cases that need no collective
+               gloo refuses on CUDA tensors):
+               moe_small's fp32 step at B=4, T=2048 with its experts split
+               over the two ranks, against the unsharded step: no token
+               routed differently, every tensor within 1e-4 of its max;
+               the ranks' times are those of a correctness run on a shared
+               card.
+
+Each path of phases 3-7 is driven with the kernels' launch and copy
 counts set to 0 just before it and read just after; launches made in
-phase 2 do not count. No path may make the wrappers copy an input (the
-model's q, k, v are views that TMA reads in place). The kernels line
-sums the launches of phases 3-6, one entry for each kernel: a wrapper
+phase 2 do not count, those of phase 7's ranks do. No path may make the
+wrappers copy an input (the model's q, k, v are views that TMA reads in
+place, on each rank's shard too). The kernels line sums the launches of
+phases 3-7, one entry for each kernel: a wrapper
 sends bf16/fp16 to a wgmma kernel and fp32 to a kernel of its own
 (every product in 3xTF32 on the tensor cores), and counts the two apart.
 Phase 2 also requires two launches of the fp32 forward and of the fp32
@@ -618,7 +636,10 @@ def phase_serve():
 _TRAIN_GRAD_TOL = 1e-3
 
 
-def phase_train():
+def phase_train(shared: dict):
+    """Phase 5; keeps in ``shared`` what phase 7 holds its sharded step
+    against: the fp32 step's loss and gradients (on the host) and the bf16
+    steps' median host time."""
     import dataclasses
 
     from ray_tpu_torch import models
@@ -663,6 +684,7 @@ def phase_train():
     _check(worst <= _TRAIN_GRAD_TOL,
            f"fp32 flash gradients differ from reference: worst leaf "
            f"{worst} > {_TRAIN_GRAD_TOL} of its max |g|")
+    shared["gpt2_fp32"] = (loss_f.item(), [g.cpu() for g in grads_f])
     del grads_f, grads_r, params
 
     # bf16: n_steps steps of the train step.
@@ -687,6 +709,7 @@ def phase_train():
            f"non-finite loss or grad_norm: {losses} {norms}")
     _check(losses[-1] < losses[0], f"bf16 loss did not fall: {losses}")
     median_ms = statistics.median(step_ms[1:])  # the first step warms up
+    shared["gpt2_bf16_step_ms_median"] = median_ms
     row = {"batch": B, "seq": T, "fp32_loss_flash": loss_f.item(),
            "fp32_loss_abs_err": loss_err,
            "fp32_worst_leaf_grad_err_share": worst,
@@ -741,10 +764,11 @@ def _moe_layer(x, router_w, w_gate, w_up, w_down, dout, top_k):
     return kept, out.detach(), aux.detach(), grads
 
 
-def _model_routing(params, inputs, cfg):
+def _model_routing(params, inputs, cfg, mesh=None):
     """The experts keeping each token in every MoE layer of one forward
-    of the model (no gradient): one bool [n, g, E] per layer, taken from
-    each layer's own moe_swiglu inputs."""
+    of the model (no gradient; sharded over ``mesh`` if one is given): one
+    bool [n, g, E] per layer, taken from each layer's own moe_swiglu
+    inputs."""
     from ray_tpu_torch import models
     from ray_tpu_torch.models import transformer
     from ray_tpu_torch.ops import moe
@@ -752,15 +776,16 @@ def _model_routing(params, inputs, cfg):
     kept, moe_swiglu = [], transformer.moe_swiglu
 
     def spy(x, router_w, *weights, top_k, capacity_factor, **kw):
-        kept.append(moe.route(x, router_w, top_k=top_k,
-                              capacity_factor=capacity_factor)[1].sum(-1) > 0)
+        group = {k: v for k, v in kw.items() if k == "group_size"}
+        kept.append(moe.route(x, router_w, top_k=top_k, capacity_factor=capacity_factor,
+                              **group)[1].sum(-1) > 0)
         return moe_swiglu(x, router_w, *weights, top_k=top_k,
                           capacity_factor=capacity_factor, **kw)
 
     transformer.moe_swiglu = spy
     try:
         with torch.no_grad():
-            models.forward(params, inputs, cfg)
+            models.forward(params, inputs, cfg, mesh=mesh)
     finally:
         transformer.moe_swiglu = moe_swiglu
     return kept
@@ -920,6 +945,240 @@ def phase_moe(card: str):
     return row
 
 
+# Phase 7's limits. (a) The sharded step at world size 1 against phase 5's
+# unsharded one: the same products on the same shards, so each gradient
+# leaf agrees to 1e-6 of its largest |value| (bitwise equality is
+# expected and printed). (b) moe_small with its experts split over two
+# ranks against the unsharded step: no token routed differently, and the
+# loss and every gradient within 1e-4 of its largest |value| (the layer's
+# limit in phase 6: the sums run in another order).
+_WORLD1_TOL = 1e-6
+_EXPERT2_TOL = 1e-4
+# What part (b) runs on one card: two ranks over gloo, which takes CUDA
+# tensors for some collectives only. On torch 2.11.0+cu128 (the card's;
+# tests/gloo_cuda_report.py) it takes all_reduce (DTensor's Partial ->
+# Replicate) and all_gather_into_tensor, but the functional
+# all_gather_tensor behind DTensor's Shard -> Replicate ends both ranks
+# (SIGSEGV), and batch_isend_irecv fails. tensor=2 gathers the
+# vocab-sharded embedding and head, fsdp=2 every weight, by that
+# all-gather: both are shown on the CPU only (tests/test_torch_parallel.py).
+# expert=2 needs all_reduce and all_gather_into_tensor alone (ExpertShard's
+# gather of the experts' outputs and the backward of its split), so it runs
+# here.
+
+
+def _moe_reference(cfg, B, T):
+    """The unsharded (world size 1) fp32 step of moe_small at B x T from the
+    seed-0 params: (loss, gradients, the experts keeping each token per
+    layer)."""
+    from ray_tpu_torch import models
+    from ray_tpu_torch.models.transformer import loss_and_grads
+
+    params = models.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                                device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (B, T + 1),
+                           generator=torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    kept = _model_routing(params, tokens[:, :-1], cfg)
+    metrics, grads = loss_and_grads(params, {"tokens": tokens}, cfg)
+    return metrics["loss"], grads, kept
+
+
+def _local_slice(full, placements, coordinate):
+    """The shard of ``full`` a rank at ``coordinate`` holds under
+    ``placements`` (Shard or Replicate per mesh dim)."""
+    from torch.distributed.tensor import Shard
+
+    for p, (index, size) in zip(placements, coordinate):
+        if isinstance(p, Shard):
+            full = full.chunk(size, dim=p.dim)[index]
+    return full
+
+
+def _expert2_rank(rank, world, cfg_kw, B, T, ref_loss, ref_grads, ref_kept):
+    """Part (b), one of two ranks sharing card 0 over gloo: moe_small's fp32
+    step with its experts split over the ranks (mesh ("expert",) of 2).
+    Returns the tokens routed differently from the reference, per gradient
+    leaf the largest |difference| on this rank's shard, the loss, the
+    step's host time and this rank's kernel launches and copies."""
+    from ray_tpu_torch import models
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops.tree import tree_leaves
+    from ray_tpu_torch.parallel import MeshConfig, shard_params
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = models.moe_small(**cfg_kw)
+    mesh = MeshConfig(data=1, expert=world).build("cuda")
+    params, _ = shard_params(
+        models.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda"),
+        mesh, transformer.partition_specs(cfg))
+    tokens = torch.randint(0, cfg.vocab_size, (B, T + 1),
+                           generator=torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    kept = _model_routing(params, tokens[:, :-1], cfg, mesh=mesh)
+    rerouted = sum(_routing_mismatches(a, b) for a, b in zip(kept, ref_kept))
+    wrappers = [getattr(_kernels, name) for name in _COPYING]
+    for w in wrappers:
+        w.launches = w.launches_fp32 = w.copies = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics, grads = transformer.loss_and_grads(params, {"tokens": tokens}, cfg, mesh=mesh)
+    loss = metrics["loss"].item()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    coordinate = [(mesh.get_local_rank(d), mesh.size(d)) for d in range(mesh.ndim)]
+    max_diff = []
+    for g, ref, p in zip(grads, ref_grads, tree_leaves(params)):
+        local = g.to_local()
+        ref = _local_slice(ref, p.placements, coordinate)
+        max_diff.append(0.0 if ref.numel() == 0 else (local - ref).abs().max().item())
+    return {"layers": len(kept), "rerouted": rerouted, "loss": loss,
+            "loss_diff": abs(loss - ref_loss), "max_diff": max_diff, "step_ms": step_ms,
+            "launches": _launch_counts(), "copies": {w.__name__: w.copies for w in wrappers}}
+
+
+def _worst_leaf_share(max_diffs, ref_max) -> float:
+    """The largest max|got - ref| / max|ref| over a tree's leaves, given
+    each leaf's largest |difference| and largest |reference value|."""
+    return max((d / max(m, 1e-30) for d, m in zip(max_diffs, ref_max)), default=0.0)
+
+
+def _add_counts(total: dict, counts: dict) -> dict:
+    """``total``'s kernel launches and input copies plus ``counts``' (a
+    rank's, or a path's: {"launches": {kernel: n}, "copies": {wrapper:
+    n}})."""
+    return {key: {k: n + counts[key].get(k, 0) for k, n in total[key].items()}
+            for key in ("launches", "copies")}
+
+
+def phase_parallel(shared: dict):
+    """Phase 7: the sharded paths (ray_tpu_torch.parallel). Returns the
+    kernel launches and input copies that part (b)'s ranks counted."""
+    import dataclasses
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch import models
+    from ray_tpu_torch.models.transformer import loss_and_grads, partition_specs
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops.optim import FusedClipAdamW
+    from ray_tpu_torch.parallel import MeshConfig, _spawn, shard_params
+
+    # (a) World size 1 on NCCL: phase 5's GPT-2 124M steps through the mesh.
+    B, T = 8, 1024
+    cfg = models.gpt2_small(max_seq_len=T, remat=False, loss_chunk=4096,
+                            ce_impl="fused", ce_accuracy=False, attn_impl="flash")
+    tokens = torch.randint(0, cfg.vocab_size, (B, T + 1),
+                           generator=torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    batch = {"tokens": tokens}
+    kernels = (_kernels.flash_fwd, _kernels.flash_bwd_dq, _kernels.flash_bwd_dkv)
+
+    def counts():
+        return [k.launches for k in kernels]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = MeshConfig().build()
+            params, _ = shard_params(
+                models.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                                   device="cuda"), mesh, partition_specs(cfg))
+            f32 = dataclasses.replace(cfg, dtype="float32")
+            before = counts()
+            metrics, grads = loss_and_grads(params, batch, f32, mesh=mesh)
+            per_step = [a - b for a, b in zip(counts(), before)]
+            _check(per_step == [cfg.n_layers] * 3,
+                   f"the sharded fp32 step launched {per_step} (fwd, dq, dkv), expected "
+                   f"{cfg.n_layers} each")
+            ref_loss, ref_grads = shared["gpt2_fp32"]
+            grads = [g.to_local().cpu() for g in grads]
+            worst = _worst_leaf_share([(g - r).abs().max().item() for g, r in
+                                       zip(grads, ref_grads)],
+                                      [r.abs().max().item() for r in ref_grads])
+            bitwise = metrics["loss"].item() == ref_loss and all(
+                torch.equal(g, r) for g, r in zip(grads, ref_grads))
+            _check(worst <= _WORLD1_TOL,
+                   f"the sharded fp32 step's gradients differ from phase 5's by {worst} "
+                   f"of a leaf's max |g| (limit {_WORLD1_TOL})")
+            del grads, params, shared["gpt2_fp32"]
+
+            opt = FusedClipAdamW(learning_rate=3e-4, weight_decay=0.1, clip_norm=1.0)
+            params, _ = shard_params(
+                models.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                                   device="cuda"), mesh, partition_specs(cfg))
+            state = {"params": params, "opt_state": opt.init(params),
+                     "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+            step = models.make_train_step(cfg, opt, mesh=mesh)
+            losses, step_ms = [], []
+            for _ in range(6):
+                before = counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(m["loss"].item())  # a device-to-host sync
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                per_step = [a - b for a, b in zip(counts(), before)]
+                _check(per_step == [cfg.n_layers] * 3,
+                       f"a sharded bf16 step launched {per_step} (fwd, dq, dkv), expected "
+                       f"{cfg.n_layers} each")
+            _check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+                   f"the sharded bf16 loss did not fall: {losses}")
+            del state, params
+        finally:
+            dist.destroy_process_group()
+    median_ms = statistics.median(step_ms[1:])
+    print("[parallel] world1 " + json.dumps({
+        "mesh": {"data": 1}, "backend": "nccl", "batch": B, "seq": T,
+        "fp32_loss": metrics["loss"].item(), "fp32_loss_phase5": ref_loss,
+        "fp32_worst_leaf_grad_err_share": worst, "fp32_bitwise_equal_to_phase5": bitwise,
+        "bf16_losses": losses, "bf16_step_ms": step_ms,
+        "bf16_step_ms_median": median_ms,
+        "bf16_step_ms_median_unsharded_phase5": shared["gpt2_bf16_step_ms_median"],
+        "launches_per_step": cfg.n_layers}))
+
+    # (b) World size 2 on this one card, over gloo: expert=2. The kernels
+    # were built in phase 1; the ranks load them.
+    extra = {"launches": dict.fromkeys(_KERNELS, 0), "copies": dict.fromkeys(_COPYING, 0)}
+    B, T = 4, 2048
+    cfg_kw = dict(max_seq_len=T, remat=False, loss_chunk=4096, ce_impl="fused",
+                  ce_accuracy=False, attn_impl="flash", dtype="float32")
+    moe_cfg = models.moe_small(**cfg_kw)
+    torch.cuda.empty_cache()
+    ref_loss, ref_grads, ref_kept = _moe_reference(moe_cfg, B, T)
+    ref_loss = ref_loss.item()
+    ref_max = [g.abs().max().item() for g in ref_grads]
+    ranks = _spawn.run(_expert2_rank, 2, cfg_kw, B, T, ref_loss, ref_grads, ref_kept,
+                       timeout=600)
+    del ref_grads, ref_kept
+    torch.cuda.ipc_collect()  # the ranks read the reference through CUDA IPC
+    rerouted = sum(r["rerouted"] for r in ranks)
+    worst = _worst_leaf_share([max(d) for d in zip(*(r["max_diff"] for r in ranks))],
+                              ref_max)
+    loss_share = max(r["loss_diff"] for r in ranks) / abs(ref_loss)
+    for r in ranks:
+        extra = _add_counts(extra, r)
+    print("[parallel] world2 expert2 " + json.dumps({
+        "mesh": {"expert": 2}, "backend": "gloo", "ranks_on_one_card": 2,
+        "batch": B, "seq": T, "dtype": "float32", "layers_routed": ranks[0]["layers"],
+        "tokens_rerouted": rerouted, "loss": ref_loss,
+        "loss_err_share": loss_share, "worst_leaf_grad_err_share": worst,
+        "step_ms_correctness_run": [r["step_ms"] for r in ranks],
+        "launches": [r["launches"] for r in ranks]}))
+    _check(all(r["layers"] == moe_cfg.n_layers for r in ranks),
+           f"a rank routed {[r['layers'] for r in ranks]} layers, expected "
+           f"{moe_cfg.n_layers}")
+    _check(rerouted == 0, f"expert=2 routed {rerouted} tokens differently than the "
+                          f"unsharded step")
+    _check(loss_share <= _EXPERT2_TOL and worst <= _EXPERT2_TOL,
+           f"expert=2 differs from the unsharded step: loss {loss_share}, worst leaf "
+           f"{worst} of its max (limit {_EXPERT2_TOL})")
+    return extra
+
+
 # The main path's kernels as the kernels line names them: (the wrapper in
 # ray_tpu_torch.ops._kernels that launches it, whether it is the fp32
 # kernel, the source under ray_tpu_torch/csrc that holds it, the line of
@@ -993,24 +1252,30 @@ def main() -> int:
 
     # Each path of the main path with the counts set to 0 just before it
     # and read just after; the paths that train must launch every kernel
-    # (they take fp32 and bf16 steps).
+    # (they take fp32 and bf16 steps). Phase 7's ranks of world size 2 count
+    # their own launches and copies, which it returns, and they are added.
+    shared = {}
     paths = (("forward", inference(phase_forward), False),
              ("serve", inference(phase_serve), False),
-             ("train", phase_train, True),
-             ("moe", lambda: phase_moe(card), True))
+             ("train", lambda: phase_train(shared), True),
+             ("moe", lambda: phase_moe(card), True),
+             ("parallel", lambda: phase_parallel(shared), True))
     launches = dict.fromkeys(_KERNELS, 0)
     for name, run, must_launch in paths:
         for w in wrappers:
             w.launches = w.launches_fp32 = w.copies = 0
-        run()
-        counted = _launch_counts()
+        result = run()
+        total = {"launches": _launch_counts(),
+                 "copies": {w.__name__: w.copies for w in wrappers}}
+        if name == "parallel":
+            total = _add_counts(total, result)
+        counted, copies = total["launches"], total["copies"]
         print(f"[{name}] launches " + json.dumps(counted))
         for kname, n in counted.items():
             _check(n > 0 or not must_launch, f"the {name} path never launched {kname}")
             launches[kname] += n
-        for w in wrappers:
-            _check(w.copies == 0, f"{w.__name__} copied {w.copies} inputs on the "
-                                  f"{name} path")
+        for wname, n in copies.items():
+            _check(n == 0, f"{wname} copied {n} inputs on the {name} path")
     for kname, n in launches.items():
         _check(n > 0, f"the main path never launched {kname}")
     # Per kernel, from phase 2 at GPT-2 124M's shapes (forward B=4,

@@ -1,5 +1,6 @@
 """Model library (port of ray_tpu.models): the decoder-only transformer
-family's inference and training paths. See
+family's inference and training paths, on one device or sharded over a
+mesh (``partition_specs``, ``mesh=``). See
 ray_tpu_torch.models.transformer."""
 
 from ray_tpu_torch.models.transformer import (
@@ -21,6 +22,7 @@ from ray_tpu_torch.models.transformer import (
     mistral_7b,
     mixtral_8x7b,
     moe_small,
+    partition_specs,
     qwen2_7b,
     tiny,
     tiny_moe,
@@ -46,6 +48,7 @@ __all__ = [
     "make_train_step",
     "mistral_7b",
     "mixtral_8x7b",
+    "partition_specs",
     "qwen2_7b",
     "tiny",
 ]

@@ -22,8 +22,21 @@ load-balance loss.
 Training: ``lm_loss`` (full, chunked and fused chunked cross-entropy),
 ``make_train_step`` with the fused clip+AdamW optimizer or an
 optax-style one (``ray_tpu_torch.ops.optim``) and gradient
-accumulation, and ``remat`` as torch.utils.checkpoint. Sharding
-(``mesh``) arrives with a later slice of the port.
+accumulation, and ``remat`` as torch.utils.checkpoint.
+
+Sharding (``mesh``, a DeviceMesh of ray_tpu_torch.parallel): the params
+are DTensors laid out by ``partition_specs`` (Megatron-style tensor
+parallelism, expert parallelism) and fsdp (``parallel.shard_params``),
+the batch over data × fsdp. Each block runs as two sublayers under
+``local_map`` on every rank's shards — the attention (its local heads,
+through the flash kernel) and the FFN (its share of the hidden units;
+of an MoE layer's experts, whose outputs are gathered over the expert
+axis) — whose outputs are partial sums over the tensor axis; DTensor
+gathers the fsdp-sharded weights before them, reduces their outputs and
+carries the gradients back (reduce-scatter for fsdp, all-reduce over
+the data axes). Activations are laid out at ray_tpu's points: x after
+the embedding and between blocks, and the logits, as (batch, sequence,
+...).
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ import math
 from dataclasses import dataclass, replace
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -40,8 +54,18 @@ from torch.utils.checkpoint import (
 )
 
 from ray_tpu_torch.ops.attention import attention, dot_product_attention
-from ray_tpu_torch.ops.moe import moe_swiglu
+from ray_tpu_torch.ops.moe import _group_size, moe_swiglu
+from ray_tpu_torch.parallel._collectives import ExpertShard
 from ray_tpu_torch.ops.optim import FusedClipAdamW, apply_updates, global_norm
+from ray_tpu_torch.parallel.mesh import (
+    AXIS_DATA,
+    AXIS_EXPERT,
+    AXIS_FSDP,
+    AXIS_SEQUENCE,
+    AXIS_TENSOR,
+    batch_sharding,
+)
+from ray_tpu_torch.parallel.sharding import P, constrain, to_placements
 from ray_tpu_torch.ops.tree import tree_leaves, tree_map, tree_unflatten
 from ray_tpu_torch.ops.layers import (
     apply_rope,
@@ -308,6 +332,71 @@ def init_params(rng: torch.Generator, config: TransformerConfig, *,
     return tree_map(make, _param_specs(c))
 
 
+# -- partitioning -----------------------------------------------------------
+
+def partition_specs(config: TransformerConfig):
+    """Megatron-style TP base specs mirroring the param tree.
+
+    Heads / ffn-hidden shard over the ``tensor`` axis so each attention
+    and MLP block is a pair of column→row parallel products (one
+    reduction per block). Vocab shards over ``tensor`` in the
+    embedding/head; experts over ``expert``. FSDP is layered on top by
+    parallel.infer_param_specs.
+    """
+    c = config
+    specs = {
+        "embed": {"tokens": P(AXIS_TENSOR, None)},
+        "layers": {
+            "attn": {
+                "wq": P(None, None, AXIS_TENSOR, None),
+                "wk": P(None, None, AXIS_TENSOR, None),
+                "wv": P(None, None, AXIS_TENSOR, None),
+                "wo": P(None, AXIS_TENSOR, None, None),
+            },
+            "ln1": None,
+            "ln2": None,
+        },
+        "final_norm": None,
+    }
+    if c.arch == "gpt2":
+        specs["embed"]["pos"] = P(None, None)
+        specs["layers"]["mlp"] = {
+            "w_in": P(None, None, AXIS_TENSOR),
+            "b_in": P(None, AXIS_TENSOR),
+            "w_out": P(None, AXIS_TENSOR, None),
+            "b_out": None,
+        }
+    elif c.n_experts > 0:
+        specs["layers"]["router"] = {"w": P(None, None, None)}
+        specs["layers"]["mlp"] = {
+            "w_gate": P(None, AXIS_EXPERT, None, AXIS_TENSOR),
+            "w_up": P(None, AXIS_EXPERT, None, AXIS_TENSOR),
+            "w_down": P(None, AXIS_EXPERT, AXIS_TENSOR, None),
+        }
+    else:
+        specs["layers"]["mlp"] = {
+            "w_gate": P(None, None, AXIS_TENSOR),
+            "w_up": P(None, None, AXIS_TENSOR),
+            "w_down": P(None, AXIS_TENSOR, None),
+        }
+    if not c.tied:
+        specs["lm_head"] = P(None, AXIS_TENSOR)
+    # Expand None-marked subtrees to per-leaf None specs.
+    return _mirror(specs, config.shapes())
+
+
+def _mirror(specs, shapes):
+    """Expand a spec tree with None-subtree shorthands to exactly mirror
+    the param tree structure."""
+    if isinstance(shapes, dict):
+        out = {}
+        for k, sub in shapes.items():
+            s = specs.get(k) if isinstance(specs, dict) else None
+            out[k] = _mirror(s, sub)
+        return out
+    return specs  # leaf: a P or None
+
+
 def _unstack_layers(layers):
     """The stacked layer tree as one tree per layer (views). Each leaf is
     split by one ``unbind``: under autograd its backward stacks the
@@ -320,11 +409,7 @@ def _unstack_layers(layers):
 
 # -- forward ----------------------------------------------------------------
 
-def _check_supported(c: TransformerConfig, mesh=None):
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded forward (mesh=) is not ported yet (ROADMAP.md §1 item 3: "
-            "parallel/)")
+_BATCH = (AXIS_DATA, AXIS_FSDP)
 
 
 def _final_norm(x, params, c):
@@ -349,15 +434,33 @@ def _matmul_f32(a, b):
     return a.float() @ b.float()
 
 
-def _head(params, c):
-    """The LM head [D, V] in compute dtype (tied: the token embedding)."""
-    head = params["embed"]["tokens"].T if c.tied else params["lm_head"]
-    return head.to(c.compute_dtype)
+def _head_leaf(params, c):
+    """The parameter the LM head is (tied: the token embedding)."""
+    return params["embed"]["tokens"] if c.tied else params["lm_head"]
+
+
+def _as_head(w, c):
+    """The LM head [D, V] in compute dtype from its parameter ``w``."""
+    return (w.T if c.tied else w).to(c.compute_dtype)
 
 
 def lm_head(x, params, c):
     """Float32 logits of hidden states ``x`` [..., D] in compute dtype."""
-    return _matmul_f32(x, _head(params, c))
+    return _matmul_f32(x, _as_head(_head_leaf(params, c), c))
+
+
+def _embed(tokens, embed, c: TransformerConfig, positions=None):
+    """Token (and, for gpt2, position) embeddings of ``tokens`` [B, T] in
+    compute dtype."""
+    dt = c.compute_dtype
+    x = embed["tokens"][tokens].to(dt)
+    if c.arch == "gpt2":
+        if positions is None:
+            pos_emb = embed["pos"][:tokens.shape[1]]
+        else:
+            pos_emb = embed["pos"][positions]
+        x = x + pos_emb.to(dt)
+    return x
 
 
 def forward(params, tokens, config: TransformerConfig, *, mesh=None,
@@ -366,40 +469,65 @@ def forward(params, tokens, config: TransformerConfig, *, mesh=None,
     """Logits for ``tokens`` [B, T] → [B, T, vocab] (float32), computed on
     the device of ``params`` and ``tokens``.
 
-    ``return_aux`` additionally returns the mean per-layer router
-    load-balance loss (0 for dense models). ``return_hidden`` skips the
-    LM head and returns the final normed hidden states [B, T, D].
+    ``mesh`` runs the sharded forward (params as ``parallel.shard_params``
+    lays them out; tokens a plain tensor, the same on every rank, or a
+    DTensor): the logits and hidden states come back as DTensors laid out
+    (batch over data+fsdp, sequence, vocab over tensor), the aux as a
+    plain tensor. ``return_aux`` additionally returns the mean per-layer
+    router load-balance loss (0 for dense models). ``return_hidden`` skips
+    the LM head and returns the final normed hidden states [B, T, D].
     """
     c = config
-    _check_supported(c, mesh)
-    dt = c.compute_dtype
-    _, T = tokens.shape
+    batch, seq = _present(mesh, _BATCH), _present(mesh, (AXIS_SEQUENCE,))
+    act = P(_BATCH, AXIS_SEQUENCE, None)
+    embed = list(tree_leaves(params["embed"]))
 
-    x = params["embed"]["tokens"][tokens].to(dt)
-    if c.arch == "gpt2":
-        if positions is None:
-            pos_emb = params["embed"]["pos"][:T]
-        else:
-            pos_emb = params["embed"]["pos"][positions]
-        x = x + pos_emb.to(dt)
-        rope = None
-    else:
-        rope = rope_frequencies(c.head_dim, c.max_seq_len,
-                                theta=c.rope_theta, device=x.device)
+    def embed_local(tokens, *leaves):
+        return _embed(tokens, tree_unflatten(params["embed"], leaves), c, positions)
 
-    layer = functools.partial(_block, c=c, rope=rope, positions=positions)
+    x = _sharded(embed_local, mesh, [tokens, *embed], [P(_BATCH, None)] + [P()] * len(embed),
+                 [(P(_BATCH, None, None), ())], batch)
+    x = constrain(x, mesh, *act)
+    layer = functools.partial(
+        _block, c=c, mesh=mesh, specs=tree_map(_layer_spec, partition_specs(c)["layers"]),
+        rope=_rope(c, x.device), positions=positions,
+        expert_shard=(ExpertShard(mesh, AXIS_EXPERT, c.n_experts)
+                      if c.n_experts > 0 and _present(mesh, (AXIS_EXPERT,)) else None))
     if c.remat and torch.is_grad_enabled():
         layer = _checkpointed(layer, c.remat_policy)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = None
     for lp in _unstack_layers(params["layers"]):
         x, aux_i = layer(x, lp)
-        aux = aux + aux_i / c.n_layers
+        if c.n_experts > 0:
+            aux = aux_i / c.n_layers if aux is None else aux + aux_i / c.n_layers
+    aux = (_whole(aux) if aux is not None
+           else torch.zeros((), dtype=torch.float32, device=x.device))
 
-    x = _final_norm(x, params, c)
+    norm = list(tree_leaves(params["final_norm"]))
+
+    def norm_local(x, *leaves):
+        return _final_norm(x, {"final_norm": tree_unflatten(params["final_norm"], leaves)}, c)
+
+    x = _sharded(norm_local, mesh, [x, *norm], [act] + [P()] * len(norm), [(act, ())],
+                 batch + seq)
     if return_hidden:
         return (x, aux) if return_aux else x
-    logits = lm_head(x, params, c)
+
+    def head_local(x, w):
+        return _matmul_f32(x, _as_head(w, c))
+
+    logits = _sharded(head_local, mesh, [x, _head_leaf(params, c)], [act, P()], [(act, ())],
+                      batch + seq)
+    logits = constrain(logits, mesh, _BATCH, AXIS_SEQUENCE, AXIS_TENSOR)
     return (logits, aux) if return_aux else logits
+
+
+def _rope(c: TransformerConfig, device):
+    """RoPE's (cos, sin) tables for the llama arch, None for gpt2."""
+    if c.arch == "gpt2":
+        return None
+    return rope_frequencies(c.head_dim, c.max_seq_len, theta=c.rope_theta,
+                            device=device)
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -426,8 +554,63 @@ def _checkpointed(fn, policy: str):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
-def _block(x, lp, c: TransformerConfig, *, rope, positions=None):
-    """One transformer block (pre-norm residual)."""
+def _block(x, lp, c: TransformerConfig, *, mesh, specs, rope, positions, expert_shard):
+    """One transformer block (pre-norm residual): the attention and the
+    FFN sublayer, each on every rank's shards (``_sharded``; ``specs``
+    lays out one layer's leaves), each output a partial sum over the
+    tensor axis, which splits the heads and the hidden units."""
+    batch, seq = _present(mesh, _BATCH), _present(mesh, (AXIS_SEQUENCE,))
+    tensor = _present(mesh, (AXIS_TENSOR,))
+    leaves = list(tree_leaves(lp))
+    leaf_specs = _leaf_specs(lp, specs)
+
+    def attn_local(x, cos, sin, *leaves):
+        rope = None if cos is None else (cos, sin)
+        return _attention(x, tree_unflatten(lp, leaves), c, rope=rope, positions=positions)
+
+    # The sequence is gathered: attention sees all of it (ray_tpu's GSPMD
+    # gathers K/V); every sequence rank computes the same.
+    o = _sharded(attn_local, mesh, [x, *(rope or (None, None)), *leaves],
+                 [P(_BATCH, None, None), None, None, *leaf_specs],
+                 [(P(_BATCH, None, None), tensor)], batch + tensor)
+    x = x + _laid_out_as(o, x)
+
+    moe_kw, ffn_in, ffn_partial = {}, P(_BATCH, AXIS_SEQUENCE, None), batch + seq + tensor
+    # A term every rank of the tensor axis would add (gpt2's b_out, the
+    # router aux) is added by the first of them only, so the partial sums
+    # add it once.
+    first = _coordinate(mesh, AXIS_TENSOR)[0] == 0
+    aux_scale = float(first)
+    if c.n_experts > 0:
+        # Each rank routes whole groups of the global batch (of
+        # moe_swiglu's default size): its own rows where they hold a whole
+        # number of groups, else all of them.
+        B, S = x.shape[:2]
+        n_batch = math.prod(_coordinate(mesh, a)[1] for a in batch)
+        g = _group_size(B * S, 1024)
+        aligned = B % n_batch == 0 and (B // n_batch * S) % g == 0
+        ffn_in = P(_BATCH if aligned else None, None, None)
+        ffn_partial = (batch if aligned else ()) + tensor
+        moe_kw = dict(group_size=g, constrain_fn=expert_shard)
+        if aligned:  # a batch shard's aux is its share of the mean over groups
+            aux_scale /= n_batch
+
+    def ffn_local(x, *leaves):
+        lp_ = tree_unflatten(lp, leaves)
+        if c.arch == "gpt2" and not first:
+            lp_["mlp"]["b_out"] = lp_["mlp"]["b_out"] * 0.0
+        m, aux = _ffn(x, lp_, c, **moe_kw)
+        return m, (aux if aux_scale == 1.0 else aux * aux_scale)
+
+    m, aux = _sharded(ffn_local, mesh, [x, *leaves], [ffn_in, *leaf_specs],
+                      [(ffn_in, tensor), (P(), ffn_partial)], ffn_partial)
+    return x + _laid_out_as(m, x), aux
+
+
+def _attention(x, lp, c: TransformerConfig, *, rope, positions=None):
+    """A block's attention sublayer without its residual: ln1, the q/k/v
+    products, RoPE, attention over every head ``lp`` holds and the output
+    product."""
     dt = c.compute_dtype
     if c.arch == "gpt2":
         h = layer_norm(x, lp["ln1"]["w"], lp["ln1"]["b"])
@@ -454,9 +637,13 @@ def _block(x, lp, c: TransformerConfig, *, rope, positions=None):
     k, v = _expand_gqa(k, v, c)
     o = attention(q, k, v, causal=True, impl=c.attn_impl,
                   block_q=c.flash_block_q, block_k=c.flash_block_k)
-    o = torch.einsum("bthk,hkd->btd", o, lp["attn"]["wo"].to(dt))
-    x = x + o
+    return torch.einsum("bthk,hkd->btd", o, lp["attn"]["wo"].to(dt))
 
+
+def _ffn(x, lp, c: TransformerConfig, **moe_kw):
+    """A block's FFN sublayer without its residual: (out, router aux).
+    ``moe_kw`` goes to moe_swiglu (the group size and the expert split)."""
+    dt = c.compute_dtype
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if c.arch == "gpt2":
         h = layer_norm(x, lp["ln2"]["w"], lp["ln2"]["b"])
@@ -469,12 +656,12 @@ def _block(x, lp, c: TransformerConfig, *, rope, positions=None):
         m, aux = moe_swiglu(
             h, lp["router"]["w"], lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
             lp["mlp"]["w_down"], top_k=c.expert_top_k,
-            capacity_factor=c.expert_capacity_factor)
+            capacity_factor=c.expert_capacity_factor, **moe_kw)
     else:
         h = rms_norm(x, lp["ln2"]["w"])
         m = swiglu(h, lp["mlp"]["w_gate"].to(dt), lp["mlp"]["w_up"].to(dt),
                    lp["mlp"]["w_down"].to(dt))
-    return x + m, aux
+    return m, aux
 
 
 def _expand_gqa(k, v, c: TransformerConfig):
@@ -484,18 +671,113 @@ def _expand_gqa(k, v, c: TransformerConfig):
     return (k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2))
 
 
+# -- sharding -------------------------------------------------------------------
+
+def _present(mesh, axes) -> tuple:
+    """The axes of ``axes`` that ``mesh`` has, in their order (none
+    without a mesh)."""
+    return () if mesh is None else tuple(a for a in axes if a in mesh.mesh_dim_names)
+
+
+def _coordinate(mesh, axis: str) -> tuple[int, int]:
+    """(this rank's index, size) along ``axis``; (0, 1) where it is absent."""
+    if axis not in _present(mesh, (axis,)):
+        return 0, 1
+    dim = mesh.mesh_dim_names.index(axis)
+    return mesh.get_local_rank(dim), mesh.size(dim)
+
+
+def _sharded(fn, mesh, args, specs, outs, partial_axes=()):
+    """``fn`` on every rank's shards of ``args``, under local_map; without
+    a mesh, ``fn`` on views of ``args``.
+
+    ``args`` and ``specs`` are two flat lists: a P lays an arg out (a
+    plain tensor is taken as the whole value, which every rank holds), a
+    None passes it to ``fn`` as it is. ``outs`` holds one (P, axes the
+    output is a partial sum over) per output of ``fn``. ``partial_axes``
+    are the axes whose work this call divides among their ranks (those
+    sharding its activations, and the tensor axis of its weights): the
+    gradient of an arg not sharded over one of them is each
+    rank's share, a partial sum over it; over the other axes every rank
+    computes the same, so it is replicated there.
+    """
+    if mesh is None:
+        # Views, as local_map hands fn each shard: autograd then sums an
+        # arg's gradients in the same order, so that a mesh of one gives
+        # the same bits.
+        return fn(*(a if s is None or a is None else a.view_as(a)
+                    for a, s in zip(args, specs)))
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    names = mesh.mesh_dim_names
+    in_pl, grad_pl, placed = [], [], []
+    for arg, spec in zip(args, specs):
+        if spec is None:
+            in_pl.append(None)
+            grad_pl.append(None)
+            placed.append(arg)
+            continue
+        if not isinstance(arg, DTensor):
+            arg = DTensor.from_local(arg, mesh, [Replicate()] * len(names),
+                                     run_check=False)
+        pl = tuple(to_placements(spec, mesh))
+        in_pl.append(pl)
+        grad_pl.append(tuple(
+            p if isinstance(p, Shard) else Partial() if name in partial_axes else Replicate()
+            for name, p in zip(names, pl)))
+        placed.append(arg)
+    out_pl = tuple(
+        [Partial() if name in partial and isinstance(p, Replicate) else p
+         for name, p in zip(names, to_placements(spec, mesh))]
+        for spec, partial in outs)
+    return local_map(fn, out_placements=out_pl, in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(grad_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(*placed)
+
+
+def _whole(t):
+    """A DTensor's whole value on every rank; a plain tensor as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _laid_out_as(t, like):
+    """``t`` in the layout of ``like`` (plain tensors: ``t``)."""
+    if isinstance(t, DTensor) and t.placements != like.placements:
+        return t.redistribute(like.device_mesh, like.placements)
+    return t
+
+
+def _layer_spec(spec):
+    """A stacked leaf's spec for one layer's slice (its layer dim gone)."""
+    return P() if spec is None else P(*spec[1:])
+
+
+def _leaf_specs(tree, specs) -> list:
+    """The specs of the leaves of ``tree`` (in tree_leaves order), looked
+    up by key in ``specs`` (P() where it has None)."""
+    out = []
+
+    def walk(t, s):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, s.get(k) if isinstance(s, dict) else None)
+        else:
+            out.append(P() if s is None else s)
+
+    walk(tree, specs)
+    return out
+
+
 # -- loss / train step ------------------------------------------------------
 
 def _perplexity(loss):
     return torch.exp(torch.clamp(loss, max=20.0))
 
 
-def cross_entropy_loss(logits, targets, *, mask=None, z_loss: float = 0.0):
-    """Token-level CE in float32 with optional z-loss regularizer.
-
-    logits [B,T,V] (any dtype; upcast), targets [B,T] int, mask [B,T]
-    (1 = contributes). Returns (scalar loss, dict metrics).
-    """
+def _ce_sums(logits, targets, mask, z_loss):
+    """(Σ nll·mask, Σ correct·mask) of logits [..., V] against targets
+    (mask None: every token counts 1)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, targets[..., None].long())[..., 0]
@@ -504,13 +786,28 @@ def cross_entropy_loss(logits, targets, *, mask=None, z_loss: float = 0.0):
         nll = nll + z_loss * lse.square()
     correct = (logits.argmax(-1) == targets).float()
     if mask is None:
-        loss = nll.sum() / nll.numel()
-        acc = correct.mean()
-    else:
-        mask = mask.float()
-        denom = mask.sum().clamp_min(1.0)
-        loss = (nll * mask).sum() / denom
-        acc = (correct * mask).sum() / denom
+        return nll.sum(), correct.sum()
+    mask = mask.float()
+    return (nll * mask).sum(), (correct * mask).sum()
+
+
+def _ce_denom(targets, mask):
+    """The tokens a CE means over: all of them, or max(Σ mask, 1)."""
+    if mask is None:
+        return targets.numel()
+    return mask.float().sum().clamp_min(1.0)
+
+
+def cross_entropy_loss(logits, targets, *, mask=None, z_loss: float = 0.0):
+    """Token-level CE in float32 with optional z-loss regularizer.
+
+    logits [B,T,V] (any dtype; upcast), targets [B,T] int, mask [B,T]
+    (1 = contributes). Returns (scalar loss, dict metrics).
+    """
+    nll_sum, correct_sum = _ce_sums(logits, targets, mask, z_loss)
+    denom = _ce_denom(targets, mask)
+    loss = nll_sum / denom
+    acc = correct_sum / denom
     return loss, {"loss": loss, "accuracy": acc, "perplexity": _perplexity(loss)}
 
 
@@ -533,19 +830,18 @@ def _ce_chunk(xb, head, tb, mb, z_loss, accuracy):
     return nll_s, corr_s
 
 
-def chunked_ce_loss(x, head, targets, *, mask=None, z_loss: float = 0.0,
-                    chunk: int = 2048, accuracy: bool = True):
-    """CE over a chunked LM head: x [B,T,D] (final hidden), head [D,V].
+def _flat_mask(mask, n, device):
+    return (mask.reshape(n).float() if mask is not None
+            else torch.ones((n,), dtype=torch.float32, device=device))
 
-    Logits exist only a chunk at a time, each chunk under
-    torch.utils.checkpoint: the backward recomputes its logits instead of
-    keeping the [B,T,V] float32 tensor alive."""
+
+def _chunked_ce_sums(x, head, targets, mask, z_loss, chunk, accuracy):
+    """chunked_ce_loss's (Σ nll·mask, Σ correct·mask)."""
     B, T, D = x.shape
     N = B * T
     xf = x.reshape(N, D)
     tf = targets.reshape(N)
-    mf = (mask.reshape(N).float() if mask is not None
-          else torch.ones((N,), dtype=torch.float32, device=x.device))
+    mf = _flat_mask(mask, N, x.device)
     chunk = min(chunk, N)
     nll_sum = correct_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for s in range(0, N, chunk):
@@ -554,21 +850,36 @@ def chunked_ce_loss(x, head, targets, *, mask=None, z_loss: float = 0.0,
                                    z_loss, accuracy, use_reentrant=False)
         nll_sum = nll_sum + nll_s
         correct_sum = correct_sum + corr_s
-    denom = mf.sum().clamp_min(1.0)
+    return nll_sum, correct_sum
+
+
+def chunked_ce_loss(x, head, targets, *, mask=None, z_loss: float = 0.0,
+                    chunk: int = 2048, accuracy: bool = True, denom=None):
+    """CE over a chunked LM head: x [B,T,D] (final hidden), head [D,V].
+
+    Logits exist only a chunk at a time, each chunk under
+    torch.utils.checkpoint: the backward recomputes its logits instead of
+    keeping the [B,T,V] float32 tensor alive. ``denom`` is the count the
+    sums are divided by (default: the tokens ``mask`` keeps; the sharded
+    loss passes the global batch's)."""
+    nll_sum, correct_sum = _chunked_ce_sums(x, head, targets, mask, z_loss, chunk,
+                                            accuracy)
+    if denom is None:
+        B, T, _ = x.shape
+        denom = _flat_mask(mask, B * T, x.device).sum().clamp_min(1.0)
     loss = nll_sum / denom
     acc = correct_sum / denom
     return loss, {"loss": loss, "accuracy": acc, "perplexity": _perplexity(loss)}
 
 
-def _fused_ce_scan(x, head, targets, mask, z_loss, chunk, accuracy,
+def _fused_ce_scan(x, head, targets, mask, denom, z_loss, chunk, accuracy,
                    want_grads):
-    """Loop over token chunks. Returns ((nll_sum, correct_sum, denom),
-    grads): with want_grads, grads is (dx [N,D] f32, dhead [D,V] f32), the
-    gradients of x/head for a unit loss gradient, already including the
-    1/denom and z_loss terms; else None."""
+    """Loop over token chunks. Returns ((nll_sum, correct_sum), grads):
+    with want_grads, grads is (dx [N,D] f32, dhead [D,V] f32), the
+    gradients of x/head for a unit loss gradient of nll_sum / ``denom``,
+    already including the 1/denom and z_loss terms; else None."""
     N, D = x.shape
     chunk = min(chunk, N)
-    denom = mask.sum().clamp_min(1.0)
     nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     correct_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     dhead = (torch.zeros((D, head.shape[1]), dtype=torch.float32, device=x.device)
@@ -596,7 +907,7 @@ def _fused_ce_scan(x, head, targets, mask, z_loss, chunk, accuracy,
         dxs.append(_matmul_f32(dlc, head.t()))
         dhead += _matmul_f32(xb.to(head.dtype).t(), dlc)
     grads = (torch.cat(dxs), dhead) if want_grads else None
-    return (nll_sum, correct_sum, denom), grads
+    return (nll_sum, correct_sum), grads
 
 
 class _FusedChunkedCE(torch.autograd.Function):
@@ -604,13 +915,15 @@ class _FusedChunkedCE(torch.autograd.Function):
     loop (dlogits = softmax - onehot), so each chunk's logits product runs
     once per train step, and kept as the residuals in x's and head's
     dtypes (ray_tpu's _fused_ce_fwd); the backward scales them by the
-    incoming loss gradient. The accuracy carries no gradient."""
+    incoming loss gradient. The accuracy carries no gradient. ``denom``
+    is the count the sums are divided by (the sharded loss passes the
+    global batch's)."""
 
     @staticmethod
-    def forward(ctx, x, head, targets, mask, z_loss, chunk, accuracy):
+    def forward(ctx, x, head, targets, mask, denom, z_loss, chunk, accuracy):
         want = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
-        (nll_sum, correct_sum, denom), grads = _fused_ce_scan(
-            x, head, targets, mask, z_loss, chunk, accuracy, want_grads=want)
+        (nll_sum, correct_sum), grads = _fused_ce_scan(
+            x, head, targets, mask, denom, z_loss, chunk, accuracy, want_grads=want)
         if want:
             dx, dhead = grads
             ctx.save_for_backward(dx.to(x.dtype), dhead.to(head.dtype))
@@ -622,16 +935,26 @@ class _FusedChunkedCE(torch.autograd.Function):
     def backward(ctx, g_loss, g_acc):
         dx, dhead = ctx.saved_tensors
         return ((dx * g_loss).to(dx.dtype), (dhead * g_loss).to(dhead.dtype),
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
-def fused_chunked_ce_loss(x, head, targets, mask, z_loss, chunk, accuracy):
+def fused_chunked_ce_loss(x, head, targets, mask, z_loss, chunk, accuracy, denom=None):
     """Chunked LM-head CE whose gradient is computed in the forward loop.
     x [N,D] (flattened final hidden), head [D,V], targets [N] int, mask
     [N] f32. Returns (loss, acc). A call that needs no gradient (eval)
-    skips the gradient work."""
-    return _FusedChunkedCE.apply(x, head, targets, mask, z_loss, chunk,
-                                 accuracy)
+    skips the gradient work. ``denom`` as chunked_ce_loss's."""
+    if denom is None:
+        denom = mask.sum().clamp_min(1.0)
+    return _FusedChunkedCE.apply(x, head, targets, mask, denom, z_loss, chunk, accuracy)
+
+
+def _split_batch(batch):
+    """(inputs, targets, mask of the targets or None) of an LM batch."""
+    if "inputs" in batch:
+        return batch["inputs"], batch["targets"], batch.get("mask")
+    toks = batch["tokens"]
+    mask = batch.get("mask")
+    return toks[:, :-1], toks[:, 1:], (mask[:, 1:] if mask is not None else None)
 
 
 def lm_loss(params, batch, config: TransformerConfig, *, mesh=None,
@@ -641,43 +964,61 @@ def lm_loss(params, batch, config: TransformerConfig, *, mesh=None,
 
     For MoE models the loss adds ``router_aux_weight`` times the router's
     load-balance loss; the metrics report it as ``router_aux`` and
-    ``loss`` is the total (``perplexity`` stays the cross-entropy's)."""
-    if "inputs" in batch:
-        inp, tgt = batch["inputs"], batch["targets"]
-        mask = batch.get("mask")
+    ``loss`` is the total (``perplexity`` stays the cross-entropy's).
+    With ``mesh`` the forward is sharded (see ``forward``) and the loss
+    and metrics are plain tensors, the same on every rank."""
+    c = config
+    inp, tgt, mask = _split_batch(batch)
+    # Each rank sums the CE over its own tokens and divides by the global
+    # batch's count, so the loss is the sum of the ranks' shares. The vocab
+    # is gathered: the head (or the logits) enters each rank whole, where
+    # ray_tpu's GSPMD keeps it sharded over ``tensor`` and reduces the
+    # softmax's max and sum across it — the same loss.
+    shards = _present(mesh, _BATCH) + _present(mesh, (AXIS_SEQUENCE,))
+    tok = P(_BATCH, AXIS_SEQUENCE)
+    mask_spec = tok if mask is not None else None
+    # A tensor, as the sum of the mask (a Python number divides otherwise).
+    denom = _whole(mask.float().sum().clamp_min(1.0) if mask is not None
+                   else torch.full((), float(tgt.numel()), device=tgt.device))
+    if c.loss_chunk <= 0:
+        logits, aux = forward(params, inp, c, mesh=mesh, return_aux=True)
+
+        def ce_local(logits, tgt, mask):
+            nll_sum, correct_sum = _ce_sums(logits, tgt, mask, z_loss)
+            return nll_sum / denom, correct_sum / denom
+
+        args, specs = [logits, tgt, mask], [P(_BATCH, AXIS_SEQUENCE, None), tok, mask_spec]
     else:
-        toks = batch["tokens"]
-        inp, tgt = toks[:, :-1], toks[:, 1:]
-        mask = batch.get("mask")
-        if mask is not None:
-            mask = mask[:, 1:]
-    if config.loss_chunk <= 0:
-        logits, aux = forward(params, inp, config, mesh=mesh, return_aux=True)
-        loss, metrics = cross_entropy_loss(logits, tgt, mask=mask, z_loss=z_loss)
-    else:
-        if config.ce_impl not in ("fused", "checkpoint"):
-            raise ValueError(
-                f"ce_impl must be 'fused' or 'checkpoint', got {config.ce_impl!r}")
-        x, aux = forward(params, inp, config, mesh=mesh, return_aux=True,
-                         return_hidden=True)
-        head = _head(params, config)
-        if config.ce_impl == "checkpoint":
-            loss, metrics = chunked_ce_loss(x, head, tgt, mask=mask, z_loss=z_loss,
-                                            chunk=config.loss_chunk,
-                                            accuracy=config.ce_accuracy)
-        else:
+        _check_ce_impl(c)
+        x, aux = forward(params, inp, c, mesh=mesh, return_aux=True, return_hidden=True)
+
+        def ce_local(x, w, tgt, mask):
+            head = _as_head(w, c)
+            if c.ce_impl == "checkpoint":
+                loss, metrics = chunked_ce_loss(
+                    x, head, tgt, mask=mask, z_loss=z_loss, chunk=c.loss_chunk,
+                    accuracy=c.ce_accuracy, denom=denom)
+                return loss, metrics["accuracy"]
             B, T, D = x.shape
-            mf = (mask.reshape(-1).float() if mask is not None
-                  else torch.ones((B * T,), dtype=torch.float32, device=x.device))
-            loss, acc = fused_chunked_ce_loss(
-                x.reshape(B * T, D), head, tgt.reshape(-1), mf, float(z_loss),
-                int(config.loss_chunk), bool(config.ce_accuracy))
-            metrics = {"loss": loss, "accuracy": acc,
-                       "perplexity": _perplexity(loss)}
-    if config.n_experts > 0:
-        loss = loss + config.router_aux_weight * aux
+            return fused_chunked_ce_loss(
+                x.reshape(B * T, D), head, tgt.reshape(-1), _flat_mask(mask, B * T, x.device),
+                float(z_loss), int(c.loss_chunk), bool(c.ce_accuracy), denom=denom)
+
+        args = [x, _head_leaf(params, c), tgt, mask]
+        specs = [P(_BATCH, AXIS_SEQUENCE, None), P(), tok, mask_spec]
+    loss, acc = _sharded(ce_local, mesh, args, specs, [(P(), shards)] * 2, shards)
+    loss, acc = _whole(loss), _whole(acc)
+    metrics = {"loss": loss, "accuracy": acc, "perplexity": _perplexity(loss)}
+    if c.n_experts > 0:
+        loss = loss + c.router_aux_weight * aux
         metrics = dict(metrics, router_aux=aux, loss=loss)
     return loss, metrics
+
+
+def _check_ce_impl(config):
+    if config.ce_impl not in ("fused", "checkpoint"):
+        raise ValueError(
+            f"ce_impl must be 'fused' or 'checkpoint', got {config.ce_impl!r}")
 
 
 def _micro_weight(mb):
@@ -692,20 +1033,37 @@ def _micro_weight(mb):
     return torch.tensor(float(n_t), device=toks.device)
 
 
-def loss_and_grads(params, batch, config: TransformerConfig, *,
+def loss_and_grads(params, batch, config: TransformerConfig, *, mesh=None,
                    z_loss: float = 0.0):
     """(metrics, grads): lm_loss's metrics, detached, and the gradient of
     its loss for every parameter leaf in ``tree_leaves`` order, by
     torch.autograd.grad (a leaf the loss does not reach gets zeros, as
-    jax.grad gives)."""
+    jax.grad gives). With ``mesh`` each gradient is a DTensor laid out as
+    its parameter (the data-parallel partial sums reduced)."""
     leaves = list(tree_leaves(params))
     live = [p.detach().requires_grad_() for p in leaves]
-    loss, metrics = lm_loss(tree_unflatten(params, live), batch, config,
+    loss, metrics = lm_loss(tree_unflatten(params, live), batch, config, mesh=mesh,
                             z_loss=z_loss)
     grads = torch.autograd.grad(loss, live, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else _laid_out_as(g, p)
              for p, g in zip(leaves, grads)]
     return {k: m.detach() for k, m in metrics.items()}, grads
+
+
+def _place_batch(batch, mesh, device):
+    """A batch's leaves as the train step takes them: tensors on
+    ``device``; with a mesh, DTensors split over the batch axes (a plain
+    leaf is the global batch, the same on every rank)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    out = {}
+    for k, v in batch.items():
+        if mesh is None or not isinstance(v, DTensor):
+            v = torch.as_tensor(v, device=device)
+        if mesh is not None and not isinstance(v, DTensor):
+            v = distribute_tensor(v, mesh, batch_sharding(mesh), src_data_rank=None)
+        out[k] = v
+    return out
 
 
 def make_train_step(config: TransformerConfig, optimizer, *, mesh=None,
@@ -728,23 +1086,33 @@ def make_train_step(config: TransformerConfig, optimizer, *, mesh=None,
     parameters. Either way the parameters are updated IN PLACE, so the
     returned state holds the tensors of ``state["params"]`` (ray_tpu
     returns new arrays).
+
+    ``mesh``: the sharded step. The params (and the optimizer state made
+    from them) are DTensors, as ``parallel.shard_params`` lays them out;
+    a batch leaf is the global batch (a plain tensor, the same on every
+    rank, split here over the batch axes; each microbatch is a slice of
+    it) or a DTensor. Gradients take their parameters' layouts; the
+    optimizer updates each rank's shards in place; metrics are plain
+    tensors, the same on every rank.
     """
-    _check_supported(config, mesh)
     fused = isinstance(optimizer, FusedClipAdamW)
 
-    grads_of = functools.partial(loss_and_grads, config=config, z_loss=z_loss)
+    grads_of = functools.partial(loss_and_grads, config=config, mesh=mesh, z_loss=z_loss)
 
-    def accumulated(params, batch):
+    def accumulated(params, batch, device):
+        batch = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                 for k, v in batch.items()}
         for key, x in batch.items():
             if x.shape[0] % accum_steps:
                 raise ValueError(f"batch dim {x.shape[0]} of {key!r} not "
                                  f"divisible by accum_steps {accum_steps}")
-        splits = {k: x.chunk(accum_steps) for k, x in batch.items()}
+        splits = {k: torch.as_tensor(x, device=device).chunk(accum_steps)
+                  for k, x in batch.items()}
         micro = [{k: x[i] for k, x in splits.items()} for i in range(accum_steps)]
         gsum = [torch.zeros_like(p, dtype=torch.float32) for p in tree_leaves(params)]
         msum, wsum = None, 0.0
         for mb in micro:
-            metrics, grads = grads_of(params, mb)
+            metrics, grads = grads_of(params, _place_batch(mb, mesh, device))
             w = _micro_weight(mb)
             for a, g in zip(gsum, grads):
                 a.add_(w * g.float())
@@ -755,14 +1123,13 @@ def make_train_step(config: TransformerConfig, optimizer, *, mesh=None,
         return ({k: m * inv for k, m in msum.items()},
                 [g * inv for g in gsum])
 
-    def train_step(state, batch):
+    def step(state, batch):
         params = state["params"]
         device = next(tree_leaves(params)).device
-        batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
         if accum_steps > 1:
-            metrics, grads = accumulated(params, batch)
+            metrics, grads = accumulated(params, batch, device)
         else:
-            metrics, grads = grads_of(params, batch)
+            metrics, grads = grads_of(params, _place_batch(batch, mesh, device))
         grads = tree_unflatten(params, grads)
         if fused:
             params, opt_state, gnorm = optimizer.apply(grads, state["opt_state"],
@@ -774,6 +1141,16 @@ def make_train_step(config: TransformerConfig, optimizer, *, mesh=None,
         metrics = dict(metrics, grad_norm=gnorm)
         return {"params": params, "opt_state": opt_state,
                 "step": state["step"] + 1}, metrics
+
+    def train_step(state, batch):
+        if mesh is None:
+            return step(state, batch)
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        # Scalars (the microbatch weights, the optimizers' norms and bias
+        # corrections) meet DTensors as values every rank holds.
+        with implicit_replication():
+            return step(state, batch)
 
     return train_step
 
@@ -817,7 +1194,6 @@ def decode_step(params, tokens, cache, config: TransformerConfig):
     prefill.
     """
     c = config
-    _check_supported(c)
     if c.n_experts > 0:  # as init_kv_cache: no cache is made for MoE
         raise NotImplementedError(
             "KV-cache decode for MoE models is not implemented yet")

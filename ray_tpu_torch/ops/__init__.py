@@ -2,9 +2,10 @@
 kernels, forward and backward) and the norm/rope/mlp building blocks;
 MoE routing and the MoE FFN live in ray_tpu_torch.ops.moe, the
 optimizers (fused clip+AdamW and the optax-style transforms) in
-ray_tpu_torch.ops.optim.
+ray_tpu_torch.ops.optim; ring attention (sequence parallelism over a
+ring of ranks) in ray_tpu_torch.ops.ring_attention.
 
-Port of ray_tpu.ops; ring attention arrives with the parallel slice.
+Port of ray_tpu.ops.
 """
 
 from ray_tpu_torch.ops.attention import (
@@ -21,6 +22,7 @@ from ray_tpu_torch.ops.layers import (
     rope_frequencies,
     swiglu,
 )
+from ray_tpu_torch.ops.ring_attention import ring_attention, ring_attention_sharded
 
 __all__ = [
     "attention",
@@ -33,4 +35,6 @@ __all__ = [
     "rms_norm",
     "rope_frequencies",
     "swiglu",
+    "ring_attention",
+    "ring_attention_sharded",
 ]

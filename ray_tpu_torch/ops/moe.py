@@ -9,6 +9,10 @@ compute dtype. Keep float32 products true float32 on the card
 (``torch.backends.cuda.matmul.allow_tf32`` off, its default): a TF32
 router product moves the logits by ~1e-4 and flips top-k choices.
 
+Expert parallelism (``moe_swiglu``'s ``constrain_fn``): each rank of the
+expert axis routes all tokens and runs its own experts on their slots;
+the experts' outputs are gathered, and every rank combines all of them.
+
 Aux (load-balance) loss follows Switch Transformer: E * Σ_e f_e · p_e,
 where f_e is the fraction of tokens routed to expert e and p_e the mean
 router probability — minimized when routing is uniform.
@@ -109,21 +113,23 @@ def moe_swiglu(x, router_w, w_gate, w_up, w_down, *, top_k: int,
     dispatch/combine are [n, g, E, C_g] with C_g ∝ g, so memory and
     dispatch FLOPs scale O(G·g) instead of the O(G²) a single global
     dispatch would cost. The n groups are one batch dimension of every
-    product. ``constrain_fn`` (the reference's sharding annotation of the
-    dispatched activations) belongs to expert parallelism, which is not
-    ported: anything but None raises.
+    product. ``constrain_fn`` (optional) lays out the [n, E, C, D]
+    dispatched activations and the experts' outputs, at ray_tpu's two
+    points: under expert parallelism (parallel._collectives.ExpertShard)
+    it keeps a rank's experts of the first and gathers every rank's into
+    the second, and w_gate/w_up/w_down then hold that rank's experts only.
     """
-    if constrain_fn is not None:
-        raise NotImplementedError(
-            "constrain_fn (expert-parallel sharding of the dispatched "
-            "activations) is not ported yet (ROADMAP.md §1 item 3: parallel/)")
     dt = x.dtype
     xg, dispatch, combine, aux = route(x, router_w, top_k=top_k,
                                        capacity_factor=capacity_factor,
                                        group_size=group_size)
     expert_in = torch.einsum("ngec,ngd->necd", dispatch, xg).to(dt)
+    if constrain_fn is not None:
+        expert_in = constrain_fn(expert_in)
     gate = F.silu(torch.einsum("necd,edf->necf", expert_in, w_gate.to(dt)))
     up = torch.einsum("necd,edf->necf", expert_in, w_up.to(dt))
     expert_out = torch.einsum("necf,efd->necd", gate * up, w_down.to(dt))
+    if constrain_fn is not None:
+        expert_out = constrain_fn(expert_out)
     out = torch.einsum("ngec,necd->ngd", combine, expert_out.float()).to(dt)
     return out.reshape(x.shape), aux.mean()

@@ -3,9 +3,11 @@ of the optax transforms the repo's callers use).
 
 ``FusedClipAdamW``: the same semantics as ray_tpu's (and so as
 optax.chain(clip_by_global_norm(c), adamw(...))): one global gradient
-norm, the clip scale min(1, clip / max(norm, 1e-12)) applied inline, the
-bias-corrected Adam direction, and decoupled weight decay added after it,
-NOT rescaled by the clip. The norm is returned so the step's metric costs
+norm, each gradient clipped inline to (g / norm) · clip where the norm
+is not below clip (optax's order of operations: ray_tpu's FusedClipAdamW
+and optax's chain give the same bits under jit, and so do the port's
+two), the bias-corrected Adam direction, and decoupled weight decay
+added after it, NOT rescaled by the clip. The norm is returned so the step's metric costs
 nothing more. The reference is an XLA fusion, not a Pallas kernel; here it
 is plain PyTorch. Unlike the reference, ``apply`` updates the parameters
 and the moments IN PLACE (JAX returns new arrays): the returned trees are
@@ -19,6 +21,9 @@ optax 0.2.x's numerics for scalar learning rates: the same order of
 operations, states of the same shape (an int32 ``count``), tensors on the
 parameters' device. ``update`` returns new tensors; ``apply_updates``
 adds the updates to the parameters IN PLACE (optax returns new arrays).
+
+Sharded parameters (DTensors): the global norms sum over every shard,
+and FusedClipAdamW updates each rank's shards in place.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ray_tpu_torch.ops.tree import tree_leaves, tree_map, tree_unflatten, zeros_like
 
@@ -59,20 +65,24 @@ class FusedClipAdamW:
 
     @torch.no_grad()
     def apply(self, grads, state, params):
-        gl = list(tree_leaves(grads))
-        gnorm = torch.stack([g.float().square().sum() for g in gl]).sum().sqrt()
+        gnorm = global_norm(grads)
+        # A clipped gradient is (g / norm) * clip, in optax's order of
+        # operations, and an unclipped one (g / 1) * 1: the bits of
+        # chain(clip_by_global_norm, adamw), as ray_tpu's two give under jit.
+        one = torch.ones((), dtype=torch.float32, device=gnorm.device)
+        div, mul = one, one
         if self.clip_norm is not None:
-            scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
-        else:
-            scale = torch.ones((), dtype=torch.float32, device=gnorm.device)
+            clipped = gnorm >= self.clip_norm
+            div = torch.where(clipped, gnorm, one)
+            mul = torch.where(clipped, self.clip_norm * one, one)
         count = state["count"] + 1
         c = count.float()
         # optax's bias correction: m̂ = m/(1-b1^t), v̂ = v/(1-b2^t).
         bc1 = 1.0 - torch.pow(self.b1, c)
         bc2 = 1.0 - torch.pow(self.b2, c)
-        for p, g, m, v in zip(tree_leaves(params), gl, tree_leaves(state["m"]),
-                              tree_leaves(state["v"])):
-            gf = g.float() * scale
+        for p, g, m, v in zip(*(map(_local, tree_leaves(t))
+                                for t in (params, grads, state["m"], state["v"]))):
+            gf = (g.float() / div) * mul
             m_new = self.b1 * m.float() + (1.0 - self.b1) * gf
             v_new = self.b2 * v.float() + (1.0 - self.b2) * (gf * gf)
             update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + self.eps)
@@ -117,9 +127,23 @@ def _stateless(update) -> GradientTransformation:
     return GradientTransformation(lambda params: EmptyState(), update)
 
 
+def _square_sum(x) -> torch.Tensor:
+    """Σ x² in float32 over every element of ``x``; a DTensor's over all
+    of its shards (each rank's own, reduced), as a plain tensor."""
+    s = x.float().square().sum()
+    return s.full_tensor() if isinstance(s, DTensor) else s
+
+
+def _local(x):
+    """A DTensor's shard on this rank (the tensor itself, so an in-place
+    update of it updates the DTensor), or ``x``."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt(Σ x²) over every leaf, in float32."""
-    return torch.sqrt(sum(x.float().square().sum() for x in tree_leaves(tree)))
+    """sqrt(Σ x²) over every leaf, in float32 (over every shard of a
+    DTensor leaf)."""
+    return torch.sqrt(sum(_square_sum(x) for x in tree_leaves(tree)))
 
 
 @torch.no_grad()

@@ -1,6 +1,7 @@
 """chip_smoke.py's own yardsticks, on the CPU: the tolerance it holds the
 backward kernels to, the pair count its bounds are built on, its kernels
-line, and phase 6's routing and f32 GEMM helpers."""
+line, phase 6's routing and f32 GEMM helpers, and phase 7's leaf-wise
+comparison, shard slicing and the launch counts its ranks report."""
 
 import math
 
@@ -250,3 +251,55 @@ def test_forward_bound_counts_tq_and_tk_apart(tq, tk, causal):
     got = chip_smoke._attention_bound_ms(b, tq, tk, h, d, dtype, causal, _H100)
     assert got[0] == pytest.approx(max(t_bytes, t_ops), rel=1e-12)
     assert got[1] == ("bytes" if t_bytes >= t_ops else "operations (3xTF32)")
+
+
+def _tree(seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g) for shape in ((64, 32), (32,), (4, 8, 16))]
+
+
+@pytest.mark.parametrize("tol", ["_WORLD1_TOL", "_EXPERT2_TOL"])
+def test_leafwise_comparison_tells_a_faulty_leaf(tol):
+    """Phase 7's comparison: an equal tree reads 0; a 1e-3 fault (of the
+    leaf's max) in one element of one leaf fails both limits, though it is
+    far below the other leaves' scale."""
+    limit = getattr(chip_smoke, tol)
+    ref = _tree()
+    ref[2] = ref[2] * 1e-3  # a small leaf: the fault is judged on its own max
+
+    def share(got):
+        return chip_smoke._worst_leaf_share([(a - b).abs().max().item()
+                                             for a, b in zip(got, ref)],
+                                            [b.abs().max().item() for b in ref])
+
+    assert share([t.clone() for t in ref]) == 0.0
+    faulty = [t.clone() for t in ref]
+    faulty[2][1, 2, 3] += 1e-3 * ref[2].abs().max()
+    assert share(faulty) == pytest.approx(1e-3, rel=1e-4) and share(faulty) > limit
+
+
+def test_rank_counts_are_summed_into_the_kernels_line():
+    """Part (b)'s ranks report their launches and copies; they are added to
+    the parent's counts of phase 7, kernel by kernel."""
+    names = list(chip_smoke._KERNELS)
+    total = {"launches": dict.fromkeys(names, 0),
+             "copies": dict.fromkeys(chip_smoke._COPYING, 0)}
+    total["launches"]["flash_fwd"] = 72  # the parent's world-size-1 steps
+    ranks = [{"launches": {k: 12 * (i + 1) for i, k in enumerate(names)},
+              "copies": dict.fromkeys(chip_smoke._COPYING, 0)} for _ in range(2)]
+    for r in ranks:
+        total = chip_smoke._add_counts(total, r)
+    assert total["launches"]["flash_fwd"] == 72 + 2 * 12
+    assert [total["launches"][k] for k in names[1:]] == [24 * (i + 2) for i in range(5)]
+    assert set(total["copies"].values()) == {0}
+
+
+def test_local_slice_is_the_ranks_shard():
+    """The reference's shard a rank compares its gradient with: chunked along
+    each Shard dim at the rank's index, whole along Replicate."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    full = torch.arange(2 * 8 * 3).reshape(2, 8, 3)
+    got = chip_smoke._local_slice(full, (Shard(1),), [(1, 2)])
+    assert torch.equal(got, full[:, 4:])
+    assert torch.equal(chip_smoke._local_slice(full, (Replicate(),), [(1, 2)]), full)

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from ray_tpu_torch import interop, models
+from ray_tpu_torch import interop, models, parallel
 from ray_tpu_torch.llm import LLMConfig, LLMEngine, model_runner
 from ray_tpu_torch.ops import layers
 from ray_tpu_torch.ops.optim import FusedClipAdamW
@@ -24,7 +24,9 @@ names = [m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__,
                                                "ray_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-missing = sorted({"ray_tpu_torch.ops.moe", "ray_tpu_torch.ops.optim"} - set(sys.modules))
+missing = sorted({"ray_tpu_torch.ops.moe", "ray_tpu_torch.ops.optim",
+                  "ray_tpu_torch.ops.ring_attention", "ray_tpu_torch.parallel._spawn",
+                  "ray_tpu_torch.parallel.multislice"} - set(sys.modules))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "ray_tpu"
              or m.startswith("ray_tpu."))
@@ -38,8 +40,8 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, missing, bad = out.stdout.split(" ", 2)
-    assert int(n_modules) >= 13
-    assert missing == "[]"  # the MoE ops and the optimizers were imported
+    assert int(n_modules) >= 24
+    assert missing == "[]"  # the MoE ops, the optimizers and the parallel slice were imported
     assert bad.strip() == "[]"
 
 
@@ -52,6 +54,7 @@ ENTRY_POINTS = {
     "rope_frequencies": lambda: layers.rope_frequencies(8, 4),
     "params_from_jax": lambda: interop.params_from_jax({"w": np.zeros(2)}),
     "LLMEngine": lambda: LLMEngine(LLMConfig(model="tiny")),
+    "MeshConfig.build": lambda: parallel.MeshConfig().build(),
 }
 
 

@@ -111,8 +111,10 @@ def test_params_from_jax_is_bit_exact_for_bf16():
 
 
 def test_moe_and_mesh_are_refused():
-    """mesh= is still refused (parallel/ is not ported); MoE models now run
-    forward, and only their KV-cache decode is refused, as in ray_tpu."""
+    """MoE models run forward, and only their KV-cache decode is refused,
+    as in ray_tpu. mesh= is no longer refused (the sharded forward is held
+    against ray_tpu's in test_torch_parallel.py): its layouts,
+    partition_specs, mirror the parameter tree leaf for leaf."""
     tc = T.tiny_moe()
     tp = T.init_params(torch.Generator().manual_seed(0), tc, device="cpu")
     assert T.TransformerConfig(**dataclasses.asdict(J.tiny_moe())).num_params() \
@@ -124,5 +126,12 @@ def test_moe_and_mesh_are_refused():
     assert float(aux) > 0.0
     with pytest.raises(NotImplementedError, match="MoE"):
         T.init_kv_cache(tc, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        T.forward(tp, tokens, T.tiny(), mesh=object())
+    def check(params, specs):
+        assert isinstance(specs, dict) and params.keys() == specs.keys()
+        for key, value in params.items():
+            if isinstance(value, dict):
+                check(value, specs[key])
+            else:
+                assert specs[key] is None or len(specs[key]) == value.dim(), key
+
+    check(tp, T.partition_specs(tc))

@@ -61,13 +61,38 @@ Phases, in order; any failed check exits non-zero:
                routed differently, every tensor within 1e-4 of its max;
                the ranks' times are those of a correctness run on a shared
                card.
+  8. llm     — the main path, part 6: the rest of the single-device LLM
+               plane on GPT-2 124M with phase 4's params (8 slots, 1024
+               rows, byte tokenizer). (a) paged KV (16-token pages, bf16):
+               phase 4's prompts give phase 4's tokens with the full pool,
+               half of it, and a pool too small for all eight at their
+               peak (admission backs off); (b) prefix caching, dense and
+               paged: eight prompts sharing a 512-token prefix, two waves,
+               the second hitting the cache; (c) chunked prefill (chunks of
+               128, prompts of 300-900 tokens), dense and paged; (d)
+               speculative decoding, 4 proposals a step, from the target's
+               own weights read from an .npz (every proposal accepted) and
+               from a random 2-layer draft; (e) one rank-8 LoRA adapter in
+               a mixed batch: base requests give the base tokens, adapter
+               requests the tokens of the weights with the adapter merged
+               in; (b)-(e) in f32 compute against the dense f32 engine's
+               tokens, with the top-2 margin printed where two part; (f) a
+               seeded request with every sampling option gives the same
+               tokens alone and in a full batch, and greedy logprobs are
+               within 1e-4 of log_softmax of models.forward; (g) guided
+               JSON (json_object, json_schema): every output stays in the
+               grammar and a finished one parses and meets its schema.
+               Prints tokens/s, TTFT, kv_stats, prefix hits, speculative
+               acceptance, the pool's bytes beside the dense cache's, and
+               the paged decode step's device and wall time beside the
+               dense step's.
 
-Each path of phases 3-7 is driven with the kernels' launch and copy
+Each path of phases 3-8 is driven with the kernels' launch and copy
 counts set to 0 just before it and read just after; launches made in
 phase 2 do not count, those of phase 7's ranks do. No path may make the
 wrappers copy an input (the model's q, k, v are views that TMA reads in
 place, on each rank's shard too). The kernels line sums the launches of
-phases 3-7, one entry for each kernel: a wrapper
+phases 3-8, one entry for each kernel: a wrapper
 sends bf16/fp16 to a wgmma kernel and fp32 to a kernel of its own
 (every product in 3xTF32 on the tensor cores), and counts the two apart.
 Phase 2 also requires two launches of the fp32 forward and of the fp32
@@ -568,7 +593,9 @@ def _top2_margins(logits):
     return (top[..., 0] - top[..., 1])
 
 
-def phase_serve():
+def phase_serve(shared: dict):
+    """Phase 4; keeps in ``shared`` what phase 8 holds its engines
+    against: the engine's params, prompts and tokens."""
     from ray_tpu_torch import models
     from ray_tpu_torch.llm import LLMConfig, LLMEngine, SamplingParams, model_runner
 
@@ -617,6 +644,9 @@ def phase_serve():
            "total_s": t_end - t0, "req0_equal_to_generate": got == ref,
            "req0_min_top2_margin": margins.min().item()}
     print("[serve] " + json.dumps(row))
+    shared["serve"] = {"params": eng.params, "prompts": prompts,
+                       "tokens": [done[f"r{i}"].token_ids
+                                  for i in range(len(prompts))]}
     # One decode step's device work for all 8 slots (at their last
     # positions; the slots are free, so the rows it writes are stale).
     dev = torch.device("cuda")
@@ -1179,6 +1209,325 @@ def phase_parallel(shared: dict):
     return extra
 
 
+# Phase 8 (llm): the single-device LLM plane on GPT-2 124M (phase 4's
+# params). Paths that run programs of other shapes than the dense greedy
+# engine's (prefix hits and chunks through prefill_at, speculative
+# windows through verify, LoRA through its gathered deltas) part from it
+# at bf16 near-ties without any fault, so they run in f32 compute, as the
+# CPU tests do; paged decode has the dense step's shapes after the table
+# gather and runs in bf16.
+
+
+def _first_difference(got, ref):
+    """The index of the first token where ``got`` and ``ref`` part (or
+    where the shorter ends), or None when they are equal."""
+    if got == ref:
+        return None
+    return next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b),
+                min(len(got), len(ref)))
+
+
+def _margin_at(params, cfg, prompt, ref, i):
+    """The top-2 logit margin of the model at ``ref``'s token ``i``."""
+    from ray_tpu_torch import models
+
+    seq = torch.tensor([list(prompt) + list(ref[:i])],
+                       device=params["embed"]["tokens"].device)
+    return _top2_margins(models.forward(params, seq, cfg)[0, -1]).item()
+
+
+def _check_same_tokens(what, params, cfg, prompts, got, ref):
+    """Each request's tokens equal the reference's; at a difference the
+    top-2 margin there is printed before the check fails."""
+    for i, (prompt, g, r) in enumerate(zip(prompts, got, ref)):
+        at = _first_difference(g, r)
+        if at is not None:
+            print(f"[llm] {what}: request {i} parts at token {at}, top-2 "
+                  f"margin there {_margin_at(params, cfg, prompt, r, at)}")
+        _check(at is None, f"{what}: request {i} differs from its reference "
+               f"at token {at}: {g} vs {r}")
+
+
+def _merged_lora(params, adapter, scale):
+    """``params`` with a LoRA adapter ({target: (A [L, d, r], B [L, r,
+    out])}) merged into its attention projections: W + scale * A @ B per
+    layer (wo's input is the flattened heads)."""
+    attn = dict(params["layers"]["attn"])
+    for t, (a, b) in adapter.items():
+        w = attn[t]
+        delta = torch.einsum("ldr,lro->ldo", a.to(w), b.to(w)) * scale
+        attn[t] = w + delta.reshape(w.shape)
+    return {**params, "layers": {**params["layers"], "attn": attn}}
+
+
+def _json_prefix_ok(text) -> bool:
+    """Whether every prefix of ``text`` is a prefix of some JSON value
+    (the guided engine's contract): the automaton accepts it whole."""
+    from ray_tpu_torch.llm.guided import JsonState
+
+    return JsonState().feed_text(text)
+
+
+def _save_npz(params, path):
+    """``params`` as a flat .npz of dotted keys, the format LLMConfig's
+    checkpoint paths take."""
+    import numpy as np
+
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            else:
+                flat[prefix + k] = v.float().cpu().numpy()
+
+    walk(params, "")
+    np.savez(path, **flat)
+    return path
+
+
+def _serve(eng, prompts, sps):
+    """Queue the prompts (one SamplingParams each, or one for all) and
+    step the engine to completion. Returns the outputs in prompt order
+    and the run's times: wall, TTFT median and max, and decode tokens/s
+    (the tokens after each request's first, from the first request's
+    first token to the end). ``backoffs`` counts the steps whose
+    admission left a slot free while requests waited (the page pool
+    refused them)."""
+    if not isinstance(sps, (list, tuple)):
+        sps = [sps] * len(prompts)
+    ids = [f"r{i}" for i in range(len(prompts))]
+    for rid, p, sp in zip(ids, prompts, sps):
+        eng.add_request(rid, p, sp)
+    reqs = list(eng.waiting)
+    done, backoffs = {}, 0
+    t0 = time.time()  # the engine stamps requests with time.time()
+    while eng.has_unfinished():
+        free = [i for i, s in enumerate(eng.slots) if s is None]
+        for out in eng.step():
+            done[out.request_id] = out
+        backoffs += bool(eng.waiting) and any(eng.slots[i] is None for i in free)
+    t_end = time.time()
+    outs = [done[r] for r in ids]
+    ttft = [r.t_first - r.t_add for r in reqs]
+    t_first = min(r.t_first for r in reqs)
+    return outs, {"wall_s": t_end - t0, "ttft_s_median": statistics.median(ttft),
+                  "ttft_s_max": max(ttft), "backoffs": backoffs,
+                  "decode_tokens_per_s": sum(len(o.token_ids) - 1 for o in outs)
+                  / max(t_end - t_first, 1e-9)}
+
+
+def phase_llm(shared: dict):
+    """Phase 8 (llm): the single-device LLM plane on GPT-2 124M with
+    phase 4's params, held against phase 4's tokens (bf16) or the dense
+    f32 engine's (see the note above _first_difference)."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from ray_tpu_torch import models
+    from ray_tpu_torch.llm import LLMConfig, LLMEngine, SamplingParams
+    from ray_tpu_torch.llm import kv_pages, model_runner
+    from ray_tpu_torch.llm.guided import validate_schema
+    from ray_tpu_torch.llm.tokenizer import load_tokenizer
+
+    t_phase = time.perf_counter()
+    params, prompts, ref16 = (shared["serve"][k]
+                              for k in ("params", "prompts", "tokens"))
+    cfg = models.gpt2_small()
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    base = dict(max_num_seqs=8, max_seq_len=1024, tokenizer="byte")
+
+    def engine(c=cfg, p=params, **kw):
+        return LLMEngine(LLMConfig(model=c, **{**base, **kw}), p, device="cuda")
+
+    def greedy(n, **kw):
+        return SamplingParams(max_tokens=n, ignore_eos=True, **kw)
+
+    tok = load_tokenizer("byte")
+    enc = [tok.encode(p) for p in prompts]
+    n_new, n16 = 32, 16
+    row = {}
+
+    # (a) Paged KV, bf16: the dense-equivalent pool, half of it, and a
+    # pool that cannot hold all eight at their peak (admission backs off).
+    need = sum(-(-(len(t) + n_new - 1) // 16) for t in enc)
+    for name, pages in (("full", 0), ("half", 8 * 64 // 2 + 1),
+                        ("tight", need - 16)):
+        torch.cuda.reset_peak_memory_stats()
+        eng = engine(kv_page_size=16, kv_num_pages=pages)
+        outs, times = _serve(eng, prompts, greedy(n_new))
+        _check_same_tokens(f"paged ({name} pool)", params, cfg, enc,
+                           [o.token_ids for o in outs], ref16)
+        _check(eng.kv_alloc.num_in_use == 0, f"paged ({name}) leaked pages")
+        _check(name != "tight" or times["backoffs"] > 0,
+               "the tight pool never held a request back")
+        row[f"paged_{name}"] = {
+            **times, "kv_stats": eng.kv_stats(),
+            "pool_bytes": sum(t.numel() * t.element_size()
+                              for t in eng.cache.values()),
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+        del eng
+    row["dense_cache_bytes"] = (2 * cfg.n_layers * 8 * 1024 * cfg.kv_heads
+                                * cfg.head_dim * 2)
+    print("[llm] paged " + json.dumps(row))
+
+    # The paged decode step beside the dense one, all 8 slots at position
+    # 300 (the rows they read are whatever the caches hold).
+    full = engine(kv_page_size=16)
+    dense_cache = model_runner.init_slot_cache(cfg, 8, 1024, device="cuda")
+    last = torch.zeros(8, dtype=torch.long, device="cuda")
+    pos = torch.full((8,), 300, device="cuda")
+    temps = torch.zeros(8, device="cuda")
+    tables = torch.arange(1, 8 * 64 + 1, device="cuda").reshape(8, 64)
+    steps = {
+        "paged": _profile(lambda: kv_pages.paged_decode(
+            params, last, pos, tables, full.cache, temps, full._rng, config=cfg),
+            top=60),
+        "dense": _profile(lambda: model_runner.decode(
+            params, last, pos, dense_cache, temps, full._rng, config=cfg),
+            top=60)}
+    # The row writes run as index kernels, the table gather as a gather.
+    row["decode_step"] = {k: {
+        "wall_ms": v["wall_ms"], "device_ms": v["device_ms"],
+        "index_and_gather_kernels": [t for t in v["top"] if any(
+            w in t["name"].lower() for w in ("index", "gather"))]}
+        for k, v in steps.items()}
+    print("[llm] profile decode step " + json.dumps(row["decode_step"]))
+    del full, dense_cache
+
+    # The f32 reference: the dense engine, whole-prompt prefill.
+    ref_eng = engine(f32)
+
+    def ref32(ps, n):
+        return [o.token_ids for o in _serve(ref_eng, ps, greedy(n))[0]]
+
+    # (b) Prefix caching (f32), dense and paged: eight requests sharing a
+    # 512-token prefix with distinct 16-64-token tails, in two waves.
+    words = "every request of this wave shares one long prefix of tokens. "
+    prefix = (words * 10)[:511]  # 512 tokens with BOS
+    wave = [prefix + (f" tail {i}: " + "abcdefgh"[i] * 64)[:16 + 6 * i]
+            for i in range(8)]
+    want = ref32(wave, n16)
+    row["prefix"] = {}
+    for name, kw in (("dense", {}), ("paged", dict(kv_page_size=16))):
+        eng = engine(f32, enable_prefix_caching=True, **kw)
+        _serve(eng, wave, greedy(n16))
+        outs, times = _serve(eng, wave, greedy(n16))
+        _check_same_tokens(f"prefix cache ({name}), wave 2", params, f32,
+                           [tok.encode(w) for w in wave],
+                           [o.token_ids for o in outs], want)
+        _check(eng.prefix_cache_hits > 0, f"prefix cache ({name}): no hits")
+        row["prefix"][name] = {"kv_stats": eng.kv_stats(), "wave2": times}
+        del eng
+
+    # (c) Chunked prefill (f32), dense and paged, against whole prompts.
+    long_prompts = [(words * 20)[:n] for n in (300, 611, 899)]
+    want = ref32(long_prompts, n16)
+    for name, kw in (("dense", {}), ("paged", dict(kv_page_size=16))):
+        eng = engine(f32, prefill_chunk=128, **kw)
+        outs, _ = _serve(eng, long_prompts, greedy(n16))
+        _check_same_tokens(f"chunked prefill ({name})", params, f32,
+                           [tok.encode(p) for p in long_prompts],
+                           [o.token_ids for o in outs], want)
+        del eng
+
+    # (d) Speculative decoding (f32): the target's own weights from an
+    # .npz (every proposal accepted), and a random 2-layer draft.
+    want = ref32(prompts, n_new)
+    row["speculative"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = _save_npz(params, os.path.join(tmp, "target.npz"))
+        for name, kw in (("self", dict(speculative_model=f32,
+                                       speculative_checkpoint_path=npz)),
+                         ("2-layer", dict(speculative_model=dataclasses.replace(
+                             f32, n_layers=2)))):
+            eng = engine(f32, num_speculative_tokens=4, **kw)
+            outs, times = _serve(eng, prompts, greedy(n_new))
+            _check_same_tokens(f"speculative ({name} draft)", params, f32, enc,
+                               [o.token_ids for o in outs], want)
+            st = eng.spec_stats
+            _check(st["spec_steps"] > 0, f"speculative ({name}): no spec steps")
+            _check(name != "self" or st["accepted"] == st["proposed"],
+                   f"speculative (self draft) rejected proposals: {st}")
+            row["speculative"][name] = {
+                **st, "acceptance": st["accepted"] / max(1, st["proposed"]),
+                **times}
+            del eng
+
+    # (e) LoRA (f32): a random rank-8 adapter on wq/wk/wv/wo at alpha 16;
+    # four adapter requests beside four base requests.
+    g = torch.Generator().manual_seed(8)
+    hdh = cfg.n_heads * cfg.head_dim
+    dims = {"wq": (cfg.d_model, hdh), "wk": (cfg.d_model, hdh),
+            "wv": (cfg.d_model, hdh), "wo": (hdh, cfg.d_model)}
+    adapter = {t: (torch.randn((cfg.n_layers, i, 8), generator=g) * 0.05,
+                   torch.randn((cfg.n_layers, 8, o), generator=g) * 0.05)
+               for t, (i, o) in dims.items()}
+    eng = engine(f32, lora={"max_adapters": 2, "max_rank": 8})
+    eng.add_lora("a", {t: (a.numpy(), b.numpy()) for t, (a, b) in adapter.items()},
+                 alpha=16.0)
+    outs, _ = _serve(eng, prompts, [greedy(n_new, extra={"lora": "a"} if i % 2
+                                           else {}) for i in range(8)])
+    got = [o.token_ids for o in outs]
+    _check_same_tokens("LoRA base requests", params, f32, enc[0::2], got[0::2],
+                       want[0::2])
+    merged = _merged_lora(params, {t: (a.cuda(), b.cuda())
+                                   for t, (a, b) in adapter.items()}, 16.0 / 8)
+    want_a = [o.token_ids for o in
+              _serve(engine(f32, p=merged), prompts[1::2], greedy(n_new))[0]]
+    _check_same_tokens("LoRA adapter requests", merged, f32, enc[1::2],
+                       got[1::2], want_a)
+    _check(eng.remove_lora("a") and eng.list_loras() == [], "remove_lora failed")
+    row["lora_adapter_requests_unlike_base"] = sum(
+        a != b for a, b in zip(got[1::2], want[1::2]))
+    del eng, merged
+
+    # (f) Extended sampling (f32): a seeded request alone and in a full
+    # batch; a greedy request's logprobs against log_softmax.
+    seeded = greedy(n_new, temperature=0.8, top_k=50, top_p=0.9, min_p=0.02,
+                    presence_penalty=0.3, frequency_penalty=0.2,
+                    repetition_penalty=1.1, logit_bias=((101, 2.0), (32, -1.0)),
+                    logprobs=5, seed=1234)
+    alone = _serve(ref_eng, prompts[:1], seeded)[0][0]
+    batch = _serve(ref_eng, prompts, [seeded] + [
+        greedy(n_new, temperature=1.0, seed=s) for s in range(7)])[0][0]
+    _check(batch.token_ids == alone.token_ids,
+           f"the seeded request differs in a full batch: {batch.token_ids} vs "
+           f"{alone.token_ids}")
+    _check([len(e["top"]) for e in alone.logprobs] == [5] * n_new,
+           "the seeded request's logprobs are not 5 per token")
+    out = _serve(ref_eng, prompts[:1], greedy(n_new, logprobs=5))[0][0]
+    seq = torch.tensor([enc[0] + out.token_ids[:-1]], device="cuda")
+    logp = torch.log_softmax(models.forward(params, seq, f32)[0, len(enc[0]) - 1:], -1)
+    ref_lp = logp[torch.arange(n_new), torch.tensor(out.token_ids)].cpu()
+    lp_err = (torch.tensor([e["logprob"] for e in out.logprobs]) - ref_lp).abs().max()
+    _check(lp_err.item() <= 1e-4, f"greedy logprobs differ from log_softmax by {lp_err}")
+    row["greedy_logprob_max_abs_err"] = lp_err.item()
+    del ref_eng
+
+    # (g) Guided decoding: a json_object and a json_schema request.
+    schema = {"type": "object"}
+    outs, _ = _serve(engine(max_num_seqs=2), ["Answer in JSON: ", "An object: "], [
+        SamplingParams(max_tokens=64, response_format={"type": "json_object"}),
+        SamplingParams(max_tokens=64, temperature=0.7, seed=5, response_format={
+            "type": "json_schema", "json_schema": {"schema": schema}})])
+    row["guided"] = []
+    for o in outs:
+        _check(_json_prefix_ok(o.text), f"guided output leaves JSON: {o.text!r}")
+        if o.finish_reason == "stop":
+            _check(o.error is None
+                   and validate_schema(json.loads(o.text), schema) is None,
+                   f"finished guided output {o.text!r} fails: {o.error}")
+        row["guided"].append({"finish_reason": o.finish_reason, "error": o.error,
+                              "tokens": len(o.token_ids), "text": o.text[:60]})
+    row["phase_s"] = time.perf_counter() - t_phase
+    print("[llm] " + json.dumps({k: v for k, v in row.items()
+                                 if not k.startswith("paged_")}))
+    return row
+
+
 # The main path's kernels as the kernels line names them: (the wrapper in
 # ray_tpu_torch.ops._kernels that launches it, whether it is the fp32
 # kernel, the source under ray_tpu_torch/csrc that holds it, the line of
@@ -1256,10 +1605,11 @@ def main() -> int:
     # their own launches and copies, which it returns, and they are added.
     shared = {}
     paths = (("forward", inference(phase_forward), False),
-             ("serve", inference(phase_serve), False),
+             ("serve", inference(lambda: phase_serve(shared)), False),
              ("train", lambda: phase_train(shared), True),
              ("moe", lambda: phase_moe(card), True),
-             ("parallel", lambda: phase_parallel(shared), True))
+             ("parallel", lambda: phase_parallel(shared), True),
+             ("llm", inference(lambda: phase_llm(shared)), False))
     launches = dict.fromkeys(_KERNELS, 0)
     for name, run, must_launch in paths:
         for w in wrappers:

@@ -1,10 +1,9 @@
 """LLM engine/serving configuration (port of ray_tpu/llm/config.py).
 
-The same two dataclasses with the same fields, so a ray_tpu config reads
-the same here. The port's engine (ray_tpu_torch.llm.engine) runs the
-dense single-device subset; it raises NotImplementedError for the
-options it does not have yet (paged KV, parallelism, speculative
-decoding, LoRA, prefix caching, chunked prefill, extended sampling).
+The same two dataclasses with the same fields and methods, so a ray_tpu
+config reads the same here. The port's engine (ray_tpu_torch.llm.engine)
+takes every option on one device; it raises NotImplementedError for
+tensor and pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -63,6 +62,16 @@ class SamplingParams:
             or self.logprobs > 0 or self.logit_bias
         )
 
+    def greedy_equivalent(self) -> bool:
+        """True when sampling reduces to plain argmax over the RAW
+        logits (speculative decoding's verify contract): temperature 0
+        and nothing that reshapes the distribution's argmax. top_k/top_p
+        never change the argmax; penalties do."""
+        return (self.temperature <= 0.0
+                and self.presence_penalty == 0.0
+                and self.frequency_penalty == 0.0
+                and self.repetition_penalty == 1.0)
+
 
 @dataclass
 class LLMConfig:
@@ -75,17 +84,24 @@ class LLMConfig:
     max_num_seqs: int = 8  # decode slots (continuous-batching width)
     max_seq_len: int = 512  # KV-cache capacity per slot
     prefill_buckets: tuple[int, ...] = (32, 64, 128, 256)
-    # The options below exist in ray_tpu's engine; the port's engine
-    # raises NotImplementedError when one is set.
+    # Chunked prefill: prompts longer than this prefill in chunks via
+    # prefill_at (0 = whole-prompt, bucketed prefill).
     prefill_chunk: int = 0
     enable_prefix_caching: bool = False
     prefix_block: int = 32
     prefix_cache_entries: int = 16
+    # Paged KV (llm/kv_pages.py): tokens per page (0 = dense cache) and
+    # the pool's pages (0 = the dense equivalent, max_num_seqs *
+    # ceil(max_len / page) + 1; fewer overcommit).
     kv_page_size: int = 0
     kv_num_pages: int = 0
     handoff_timeout_s: float = 0.0
+    # Speculative decoding: a draft model (TransformerConfig or factory
+    # name) proposes num_speculative_tokens tokens a step, verified in
+    # one target pass; greedy slots only.
     speculative_model: Any = None
     num_speculative_tokens: int = 4
+    # Multi-LoRA: {"max_adapters": N, "max_rank": R} (llm/lora.py).
     lora: "dict | None" = None
     speculative_checkpoint_path: str | None = None
     speculative_seed: int = 7
@@ -94,6 +110,7 @@ class LLMConfig:
     tensor_parallel_size: int = 1
     pipeline_parallel_size: int = 1
     sampling_defaults: SamplingParams = field(default_factory=SamplingParams)
+    # A flat .npz of the params (dotted keys, as ray_tpu writes them).
     checkpoint_path: str | None = None
     seed: int = 0
 
@@ -122,3 +139,18 @@ class LLMConfig:
                                        self.checkpoint_path, "model")
         raise TypeError(
             f"model must be TransformerConfig or str, got {type(self.model)}")
+
+    def resolve_speculative_model(self) -> "tfm.TransformerConfig | None":
+        """Draft-model config for speculative decoding (None = off).
+        Same resolution rules as resolve_model."""
+        sm = self.speculative_model
+        if sm is None:
+            return None
+        if isinstance(sm, tfm.TransformerConfig):
+            return sm
+        if isinstance(sm, str):
+            return self._resolve_named(sm, self.speculative_checkpoint_path,
+                                       "speculative model")
+        raise TypeError(
+            f"speculative_model must be TransformerConfig or str, "
+            f"got {type(sm)}")

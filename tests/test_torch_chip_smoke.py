@@ -1,7 +1,8 @@
 """chip_smoke.py's own yardsticks, on the CPU: the tolerance it holds the
 backward kernels to, the pair count its bounds are built on, its kernels
-line, phase 6's routing and f32 GEMM helpers, and phase 7's leaf-wise
-comparison, shard slicing and the launch counts its ranks report."""
+line, phase 6's routing and f32 GEMM helpers, phase 7's leaf-wise
+comparison, shard slicing and the launch counts its ranks report, and
+phase 8's merged-LoRA reference, token check and JSON prefix check."""
 
 import math
 
@@ -303,3 +304,79 @@ def test_local_slice_is_the_ranks_shard():
     got = chip_smoke._local_slice(full, (Shard(1),), [(1, 2)])
     assert torch.equal(got, full[:, 4:])
     assert torch.equal(chip_smoke._local_slice(full, (Replicate(),), [(1, 2)]), full)
+
+
+# -- phase 8 (llm) ------------------------------------------------------------
+
+
+def _tiny_f32():
+    from ray_tpu_torch import models
+
+    cfg = models.tiny(vocab_size=512, dtype="float32")
+    return cfg, models.init_params(torch.Generator().manual_seed(0), cfg,
+                                   device="cpu")
+
+
+def test_merged_lora_weights_equal_the_adapter_path():
+    """Check (e)'s reference: the params with the adapter merged in give
+    the LoRA path's logits (the runner's gathered deltas) within 1e-4; a
+    merge at the wrong scale is told apart."""
+    from ray_tpu_torch.llm import lora, model_runner
+    from ray_tpu_torch.models import transformer as tfm
+
+    cfg, params = _tiny_f32()
+    hdh = cfg.n_heads * cfg.head_dim
+    g = torch.Generator().manual_seed(1)
+    adapter = {t: (torch.randn((cfg.n_layers, i, 4), generator=g) * 0.3,
+                   torch.randn((cfg.n_layers, 4, o), generator=g) * 0.3)
+               for t, (i, o) in {"wq": (cfg.d_model, hdh), "wk": (cfg.d_model, hdh),
+                                 "wv": (cfg.d_model, hdh),
+                                 "wo": (hdh, cfg.d_model)}.items()}
+    mgr = lora.LoRAManager(cfg.n_layers, {t: (a.shape[1], b.shape[2])
+                                          for t, (a, b) in adapter.items()},
+                           max_adapters=2, max_rank=4, device="cpu")
+    mgr.add(lora.LoRAAdapter("a", {t: (a.numpy(), b.numpy())
+                                   for t, (a, b) in adapter.items()}, alpha=8.0))
+    tokens = torch.randint(0, 256, (1, 12), generator=g)
+    cache = model_runner.init_slot_cache(cfg, 1, 16, device="cpu")
+    got, _ = model_runner.prefill(params, tokens, 12, 0, cache, config=cfg,
+                                  lora=mgr.lora_tree(), lora_ix=torch.tensor([1]))
+    merged = chip_smoke._merged_lora(params, adapter, 8.0 / 4)
+    want = tfm.forward(merged, tokens, cfg)[0, -1]
+    assert (got - want).abs().max() < 1e-4
+    base = tfm.forward(params, tokens, cfg)[0, -1]
+    assert (got - base).abs().max() > 1e-2  # the adapter moves the logits
+    wrong = tfm.forward(chip_smoke._merged_lora(params, adapter, 8.0 / 2),
+                        tokens, cfg)[0, -1]
+    assert (got - wrong).abs().max() > 1e-2
+
+
+def test_token_check_reports_the_margin_where_requests_part(capsys):
+    """The check of checks (a)-(e): equal token lists pass; a list that
+    parts (or ends early) fails, after the top-2 margin at the first
+    differing token is printed."""
+    cfg, params = _tiny_f32()
+    prompt = [257, 10, 20, 30]
+    ref = [5, 6, 7, 8]
+    assert chip_smoke._first_difference(ref, list(ref)) is None
+    assert chip_smoke._first_difference([5, 6, 9, 8], ref) == 2
+    assert chip_smoke._first_difference([5, 6], ref) == 2
+    chip_smoke._check_same_tokens("t", params, cfg, [prompt], [list(ref)], [ref])
+    with pytest.raises(SystemExit):
+        chip_smoke._check_same_tokens("t", params, cfg, [prompt], [[5, 6, 9, 8]],
+                                      [ref])
+    out = capsys.readouterr().out
+    margin = chip_smoke._margin_at(params, cfg, prompt, ref, 2)
+    assert f"parts at token 2, top-2 margin there {margin}" in out
+    assert margin >= 0
+
+
+@pytest.mark.parametrize("text,ok", [
+    ('{"a": [1, -2.5e3, "x\\"y"], "b": {}}', True), ('  {"a": [tr', True),
+    ('{"a" 1}', False), ("[1e]", False), ('{"a": 1}}', False),
+])
+def test_json_prefix_check(text, ok):
+    """Check (g): a JSON document or any prefix of one passes; a grammar
+    break, an incomplete number that ends, or text past the document's
+    end is caught."""
+    assert chip_smoke._json_prefix_ok(text) is ok

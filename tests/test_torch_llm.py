@@ -11,6 +11,7 @@ cannot decide a test.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -132,23 +133,40 @@ def test_engine_greedy_matches_model_generate(engines):
 
 
 @pytest.mark.parametrize("option", [
-    dict(kv_page_size=16), dict(tensor_parallel_size=2),
-    dict(pipeline_parallel_size=2), dict(speculative_model="tiny"),
-    dict(lora={"max_adapters": 2}), dict(enable_prefix_caching=True),
-    dict(prefill_chunk=16),
+    dict(tensor_parallel_size=2), dict(pipeline_parallel_size=2),
+    dict(checkpoint_path=os.path.dirname(__file__)),
+    dict(speculative_model=TMODEL,
+         speculative_checkpoint_path=os.path.dirname(__file__)),
 ])
 def test_unported_engine_options_raise(option):
+    """What the port's engine still refuses: parallel serving, and orbax
+    checkpoint directories (it reads .npz only)."""
     with pytest.raises(NotImplementedError):
         LLMEngine(LLMConfig(model=TMODEL, **GEOMETRY, **option), device="cpu")
 
 
+@pytest.mark.parametrize("option", [
+    dict(kv_page_size=16), dict(kv_page_size=8, kv_num_pages=5),
+    dict(speculative_model=TMODEL), dict(lora={"max_adapters": 2}),
+    dict(enable_prefix_caching=True), dict(prefill_chunk=16),
+    dict(kv_page_size=8, prefill_chunk=16, enable_prefix_caching=True),
+])
+def test_ported_engine_options_construct(option):
+    eng = LLMEngine(LLMConfig(model=TMODEL, **GEOMETRY, **option), device="cpu")
+    assert not eng.has_unfinished()
+
+
 @pytest.mark.parametrize("sampling", [
-    dict(top_k=5), dict(repetition_penalty=1.2), dict(logprobs=2),
-    dict(response_format={"type": "json_object"}),
+    dict(logprobs=21), dict(logit_bias=tuple((i, 1.0) for i in range(17))),
+    dict(logit_bias=((512, 1.0),)),
+    dict(response_format={"type": "yaml"}),
 ])
 def test_unported_sampling_raises(engines, sampling):
+    """Sampling the engine cannot take (past its logprob and logit_bias
+    caps, a bias outside the vocab, an unknown response_format) raises
+    ValueError at intake and queues nothing."""
     _, te = engines
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         te.add_request("x", "abc", SamplingParams(**sampling))
     assert not te.has_unfinished()
 

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from ray_tpu_torch import interop, models, parallel
-from ray_tpu_torch.llm import LLMConfig, LLMEngine, model_runner
+from ray_tpu_torch.llm import LLMConfig, LLMEngine, kv_pages, lora, model_runner
 from ray_tpu_torch.ops import layers
 from ray_tpu_torch.ops.optim import FusedClipAdamW
 
@@ -26,7 +26,9 @@ for name in names:
     importlib.import_module(name)
 missing = sorted({"ray_tpu_torch.ops.moe", "ray_tpu_torch.ops.optim",
                   "ray_tpu_torch.ops.ring_attention", "ray_tpu_torch.parallel._spawn",
-                  "ray_tpu_torch.parallel.multislice"} - set(sys.modules))
+                  "ray_tpu_torch.parallel.multislice", "ray_tpu_torch.llm.kv_pages",
+                  "ray_tpu_torch.llm.lora", "ray_tpu_torch.llm.guided"}
+                 - set(sys.modules))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "ray_tpu"
              or m.startswith("ray_tpu."))
@@ -40,8 +42,9 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, missing, bad = out.stdout.split(" ", 2)
-    assert int(n_modules) >= 24
-    assert missing == "[]"  # the MoE ops, the optimizers and the parallel slice were imported
+    assert int(n_modules) >= 27
+    assert missing == "[]"  # the MoE ops, the optimizers, the parallel slice
+    # and the LLM plane's paged KV, LoRA and guided modules were imported
     assert bad.strip() == "[]"
 
 
@@ -51,6 +54,8 @@ ENTRY_POINTS = {
     "init_train_state": lambda: models.init_train_state(
         torch.Generator(), models.tiny(), FusedClipAdamW()),
     "init_slot_cache": lambda: model_runner.init_slot_cache(models.tiny(), 1, 8),
+    "init_page_pool": lambda: kv_pages.init_page_pool(models.tiny(), 2, 4),
+    "LoRAManager": lambda: lora.LoRAManager(1, {"wq": (4, 4)}),
     "rope_frequencies": lambda: layers.rope_frequencies(8, 4),
     "params_from_jax": lambda: interop.params_from_jax({"w": np.zeros(2)}),
     "LLMEngine": lambda: LLMEngine(LLMConfig(model="tiny")),

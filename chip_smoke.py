@@ -86,13 +86,36 @@ Phases, in order; any failed check exits non-zero:
                acceptance, the pool's bytes beside the dense cache's, and
                the paged decode step's device and wall time beside the
                dense step's.
+  9. train_backend — the main path, part 7: the Train backend
+               (ray_tpu_torch.train) under a user's data-parallel loop
+               (sync_model_params, autograd gradients,
+               allreduce_gradients, FusedClipAdamW) on GPT-2 124M in
+               bench.py's configuration. (a) A world-size-1 NCCL group
+               started by TorchBackend.on_worker_setup: 6 bf16 steps at
+               B=8, T=1024 (a batch of its own each, from a seed; finite
+               losses), a checkpoint at step 3 through
+               CheckpointManager; a fresh state restored from it gives
+               steps 4-6 bit for bit (losses and every parameter and
+               moment). (b) Two ranks on this card over gloo, half of
+               the batch each: their averaged fp32 gradients within 1e-4
+               of each leaf's max of one rank's on the whole batch.
+ 10. llm_parallel — the main path, part 8: GPT-2 124M with phase 4's
+               params in f32 served with tensor_parallel_size=2 on two
+               gloo ranks of this card: phase 8's prompts give the dense
+               f32 engine's greedy tokens on both ranks, each rank's
+               cache holds 6 of the 12 kv heads; the tensor-parallel
+               decode step's wall and device time beside the dense
+               engine's. Then pipeline_parallel_size=2 the same way,
+               where gloo's point-to-point transport takes CUDA tensors;
+               where it does not, its error is printed (and any other
+               error fails the run).
 
-Each path of phases 3-8 is driven with the kernels' launch and copy
+Each path of phases 3-10 is driven with the kernels' launch and copy
 counts set to 0 just before it and read just after; launches made in
-phase 2 do not count, those of phase 7's ranks do. No path may make the
+phase 2 do not count, those of the ranks of phases 7 and 9 do. No path may make the
 wrappers copy an input (the model's q, k, v are views that TMA reads in
 place, on each rank's shard too). The kernels line sums the launches of
-phases 3-8, one entry for each kernel: a wrapper
+phases 3-10, one entry for each kernel: a wrapper
 sends bf16/fp16 to a wgmma kernel and fp32 to a kernel of its own
 (every product in 3xTF32 on the tensor cores), and counts the two apart.
 Phase 2 also requires two launches of the fp32 forward and of the fp32
@@ -1436,6 +1459,7 @@ def phase_llm(shared: dict):
     # (d) Speculative decoding (f32): the target's own weights from an
     # .npz (every proposal accepted), and a random 2-layer draft.
     want = ref32(prompts, n_new)
+    shared["llm_f32"] = {"prompts": prompts, "tokens": want}  # for phase 10
     row["speculative"] = {}
     with tempfile.TemporaryDirectory() as tmp:
         npz = _save_npz(params, os.path.join(tmp, "target.npz"))
@@ -1528,6 +1552,339 @@ def phase_llm(shared: dict):
     return row
 
 
+# Phase 9 (train_backend): the Train backend (ray_tpu_torch.train) driving
+# a user's data-parallel loop, as tests/test_train.py:53-93 writes one:
+# sync_model_params, autograd gradients, allreduce_gradients, then the
+# optimizer. (a) World size 1 on NCCL, the group set up by
+# TorchBackend.on_worker_setup: a checkpoint saved at step 3 and restored
+# into a fresh state gives steps 4-6 bit for bit. (b) Two ranks on this
+# card over gloo, each with half of the batch: their averaged fp32
+# gradients against one rank's of the whole batch. The same products; the
+# sums over the batch run in another order, so each leaf agrees to 1e-4
+# of its largest |value| (phase 6's and phase 7's limit for sums in
+# another order).
+_DP2_TOL = 1e-4
+
+
+def _gpt2_train_config(**kw):
+    """bench.py's GPT-2 124M training configuration, with the flash kernels."""
+    from ray_tpu_torch import models
+
+    return models.gpt2_small(max_seq_len=1024, remat=False, loss_chunk=4096,
+                             ce_impl="fused", ce_accuracy=False, attn_impl="flash", **kw)
+
+
+def _step_batches(cfg, n, B, T):
+    """``n`` batches of B x (T + 1) tokens, batch i from seed 100 + i."""
+    return [{"tokens": torch.randint(
+        0, cfg.vocab_size, (B, T + 1), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(100 + i))} for i in range(n)]
+
+
+def _dp_steps(params, opt_state, opt, batches, cfg):
+    """A user's data-parallel steps: the loss's gradients by autograd
+    (models.loss_and_grads), averaged over the session's ranks, then the
+    optimizer. Returns (params, opt_state, losses, host ms per step)."""
+    from ray_tpu_torch.models.transformer import loss_and_grads
+    from ray_tpu_torch.ops.tree import tree_unflatten
+    from ray_tpu_torch.train import torch_utils
+
+    losses, step_ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        metrics, grads = loss_and_grads(params, batch, cfg)
+        grads = torch_utils.allreduce_gradients(tree_unflatten(params, grads))
+        params, opt_state, _ = opt.apply(grads, opt_state, params)
+        losses.append(metrics["loss"].item())  # a device-to-host sync
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return params, opt_state, losses, step_ms
+
+
+def _resume_check(cfg, opt, batches, fresh, root):
+    """Part (a)'s loop in a session of world size 1: steps 1-3 from
+    ``fresh(0)``'s state, a checkpoint registered with a CheckpointManager
+    under ``root``, steps 4-6; then ``fresh(1)``'s state restored from the
+    checkpoint and steps 4-6 again. Returns (losses of steps 1-6, the
+    restored run's losses, whether its losses and final state equal the
+    uninterrupted run's bit for bit, the host ms of steps 1-6, the
+    checkpoint's directory name, seconds to save, seconds to load)."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops.tree import tree_leaves
+    from ray_tpu_torch.train import torch_utils
+
+    params, opt_state = fresh(0)
+    params = torch_utils.sync_model_params(params)
+    params, opt_state, losses, step_ms = _dp_steps(params, opt_state, opt, batches[:3], cfg)
+    manager = train.CheckpointManager(root, num_to_keep=1, score_attribute="loss",
+                                      score_order="min")
+    staged = train.make_temp_checkpoint_dir()
+    t0 = time.perf_counter()
+    train.Checkpoint(staged).save_pytree({"params": params, "opt_state": opt_state})
+    saved = manager.register(staged, {"loss": losses[-1], "step": 3})
+    save_s = time.perf_counter() - t0
+    params, opt_state, more, ms = _dp_steps(params, opt_state, opt, batches[3:], cfg)
+    p2, s2 = fresh(1)
+    t0 = time.perf_counter()
+    restored = manager.latest.load_pytree({"params": p2, "opt_state": s2})
+    load_s = time.perf_counter() - t0
+    p2, s2, again, _ = _dp_steps(restored["params"], restored["opt_state"], opt,
+                                 batches[3:], cfg)
+    bitwise = again == more and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves({"params": params, "opt_state": opt_state}),
+                                          tree_leaves({"params": p2, "opt_state": s2})))
+    return (losses + more, again, bitwise, step_ms + ms, saved.path.split("/")[-1],
+            save_s, load_s)
+
+
+def _dp2_rank(rank, world, B, ref_grads):
+    """Part (b), one of two ranks sharing card 0 over gloo: rank 0's
+    params synced, this rank's half of the batch, the gradients averaged.
+    Returns per leaf the largest |difference| from the whole batch's
+    gradients, the loss of its half, and its kernel launches and copies."""
+    from ray_tpu_torch import models
+    from ray_tpu_torch.models.transformer import loss_and_grads
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops.tree import tree_leaves, tree_unflatten
+    from ray_tpu_torch.train import torch_utils
+    from ray_tpu_torch.train.session import TrainSession, set_session
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    set_session(TrainSession(rank, world, rank, experiment_name="chip_smoke_dp2"))
+    cfg = _gpt2_train_config(dtype="float32")
+    params = models.init_params(torch.Generator(device="cuda").manual_seed(rank), cfg,
+                                device="cuda")
+    # Each rank starts from its own seed; the sync gives all rank 0's.
+    params = torch_utils.sync_model_params(params)
+    tokens = _step_batches(cfg, 1, B, 1024)[0]["tokens"]
+    half = tokens[rank * B // world:(rank + 1) * B // world]
+    wrappers = [getattr(_kernels, name) for name in _COPYING]
+    for w in wrappers:
+        w.launches = w.launches_fp32 = w.copies = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics, grads = loss_and_grads(params, {"tokens": half}, cfg)
+    grads = torch_utils.allreduce_gradients(tree_unflatten(params, grads))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    max_diff = [(g - r).abs().max().item() for g, r in zip(tree_leaves(grads), ref_grads)]
+    set_session(None)
+    return {"loss": metrics["loss"].item(), "max_diff": max_diff, "step_ms": step_ms,
+            "launches": _launch_counts(), "copies": {w.__name__: w.copies for w in wrappers}}
+
+
+def phase_train_backend(shared: dict):
+    """Phase 9: the Train backend. Returns the kernel launches and input
+    copies that part (b)'s ranks counted."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch import models, train
+    from ray_tpu_torch.models.transformer import loss_and_grads
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops.optim import FusedClipAdamW
+    from ray_tpu_torch.parallel import _spawn
+    from ray_tpu_torch.train.session import TrainSession, set_session
+
+    B, T = 8, 1024
+    cfg = _gpt2_train_config()
+    opt = FusedClipAdamW(learning_rate=3e-4, weight_decay=0.1, clip_norm=1.0)
+    batches = _step_batches(cfg, 6, B, T)
+    kernels = (_kernels.flash_fwd, _kernels.flash_bwd_dq, _kernels.flash_bwd_dkv)
+
+    def fresh(seed):
+        params = models.init_params(torch.Generator(device="cuda").manual_seed(seed), cfg,
+                                    device="cuda")
+        return params, opt.init(params)
+
+    # (a) World size 1 on NCCL, set up by the backend.
+    row = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train.TorchBackend().on_worker_setup(0, 1, "chip_smoke", train.TorchConfig(
+            distributed="on", coordinator_address=f"file://{tmp}/store", timeout_s=300))
+        row["setup_s"] = time.perf_counter() - t0
+        _check(dist.is_initialized() and dist.get_backend() == "nccl",
+               "on_worker_setup did not start an NCCL group")
+        set_session(TrainSession(0, 1, 0, experiment_name="chip_smoke"))
+        try:
+            before = [k.launches for k in kernels]
+            (losses, again, bitwise, step_ms, saved, row["save_s"],
+             row["load_s"]) = _resume_check(cfg, opt, batches, fresh, os.path.join(tmp, "runs"))
+            launched = [k.launches - b for k, b in zip(kernels, before)]
+        finally:
+            set_session(None)
+            dist.destroy_process_group()
+    row.update({"backend": "nccl", "world_size": 1, "batch": B, "seq": T,
+                "losses": losses, "restored_losses_4_6": again,
+                "restored_steps_bitwise_equal": bitwise, "checkpoint": saved,
+                "step_ms": step_ms, "step_ms_median": statistics.median(step_ms[1:]),
+                "step_ms_median_phase5": shared.get("gpt2_bf16_step_ms_median"),
+                "launches": launched})
+    print("[train_backend] world1 " + json.dumps(row))
+    _check(all(math.isfinite(x) for x in losses + again),
+           f"the data-parallel loop's losses are not finite: {losses} {again}")
+    _check(launched == [9 * cfg.n_layers] * 3,
+           f"9 bf16 steps launched {launched} (fwd, dq, dkv), expected "
+           f"{9 * cfg.n_layers} each")
+    _check(bitwise, f"steps 4-6 from the checkpoint differ from the uninterrupted run: "
+                    f"{again} vs {losses[3:]}")
+
+    # (b) Two gloo ranks on this card, half of the batch each, in fp32.
+    f32 = _gpt2_train_config(dtype="float32")
+    params = models.init_params(torch.Generator(device="cuda").manual_seed(0), f32,
+                                device="cuda")
+    _, ref_grads = loss_and_grads(params, batches[0], f32)
+    ref_max = [g.abs().max().item() for g in ref_grads]
+    del params
+    ranks = _spawn.run(_dp2_rank, 2, B, ref_grads, timeout=600)
+    del ref_grads
+    torch.cuda.ipc_collect()  # the ranks read the reference through CUDA IPC
+    worst = _worst_leaf_share([max(d) for d in zip(*(r["max_diff"] for r in ranks))],
+                              ref_max)
+    extra = {"launches": dict.fromkeys(_KERNELS, 0), "copies": dict.fromkeys(_COPYING, 0)}
+    for r in ranks:
+        extra = _add_counts(extra, r)
+    print("[train_backend] world2 " + json.dumps({
+        "backend": "gloo", "ranks_on_one_card": 2, "batch_per_rank": B // 2, "seq": T,
+        "dtype": "float32", "rank_losses": [r["loss"] for r in ranks],
+        "worst_leaf_grad_err_share": worst, "limit": _DP2_TOL,
+        "step_ms_correctness_run": [r["step_ms"] for r in ranks],
+        "launches": [r["launches"] for r in ranks]}))
+    _check(worst <= _DP2_TOL, f"two ranks' averaged gradients differ from the whole "
+                              f"batch's by {worst} of a leaf's max (limit {_DP2_TOL})")
+    return extra
+
+
+# Phase 10 (llm_parallel): tensor- and pipeline-parallel serving of GPT-2
+# 124M (phase 4's params, f32 compute) on two gloo ranks of this card,
+# against the dense f32 engine's tokens for phase 8's prompts. tensor=2
+# needs all_reduce and all_gather_into_tensor, which gloo takes on CUDA
+# tensors (tests/gloo_cuda_report.py); the pipeline's stage hop is
+# batch_isend_irecv, which gloo refused on CUDA tensors on torch
+# 2.11.0+cu128, so the pipeline runs only if the transport takes it, and
+# its error is printed otherwise.
+_PP_TRANSPORT = ("batch_isend_irecv", "_exchange")
+
+
+def _transport_failures(errors) -> bool:
+    """Whether every error a pipeline rank reported comes from the stage
+    hop's transport: raised in it, or a rank it ended or left waiting
+    (``_spawn``'s "died" and TimeoutError). Anything else is a fault."""
+    return all(any(w in e for w in _PP_TRANSPORT + ("died", "TimeoutError"))
+               for e in errors)
+
+
+def _serving_rank(rank, world, params, prompts, n_new, option):
+    """One rank of a tensor- or pipeline-parallel engine on card 0: its
+    tokens for ``prompts``, its cache's shape, and (tensor) one decode
+    step's wall and device time with the 8 slots at position 300. A
+    failure comes back as its traceback."""
+    import dataclasses
+    import traceback
+
+    from ray_tpu_torch import models
+    from ray_tpu_torch.llm import LLMConfig, LLMEngine, SamplingParams
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = dataclasses.replace(models.gpt2_small(), dtype="float32")
+    try:
+        eng = LLMEngine(LLMConfig(model=f32, max_num_seqs=8, max_seq_len=1024,
+                                  tokenizer="byte", **{option: 2}), params, device="cuda")
+        with torch.inference_mode():
+            outs, times = _serve(eng, prompts, SamplingParams(max_tokens=n_new,
+                                                              ignore_eos=True))
+            out = {"tokens": [o.token_ids for o in outs], "times": times,
+                   "cache_k": list(eng.cache["k"].shape)}
+            if option == "tensor_parallel_size":
+                last = torch.zeros(8, dtype=torch.long, device="cuda")
+                pos = torch.full((8,), 300, device="cuda")
+                temps = torch.zeros(8, device="cuda")
+                out["decode_step"] = _profile(lambda: eng._mr.decode(
+                    eng.params, last, pos, eng.cache, temps, eng._rng, config=f32))
+            return out
+    except Exception:  # noqa: BLE001 - reported and judged by the phase
+        return {"error": traceback.format_exc()}
+
+
+def phase_llm_parallel(shared: dict):
+    """Phase 10: tensor_parallel_size=2, then pipeline_parallel_size=2,
+    on two gloo ranks of this card."""
+    import dataclasses
+
+    from ray_tpu_torch import models
+    from ray_tpu_torch.llm import model_runner
+    from ray_tpu_torch.llm.tokenizer import load_tokenizer
+    from ray_tpu_torch.ops.tree import tree_map
+    from ray_tpu_torch.parallel import _spawn
+
+    params = shared["serve"]["params"]
+    # Plain copies for the ranks (phase 4 made these under inference_mode;
+    # the ranks receive them by CUDA IPC).
+    shared_params = tree_map(lambda t: t.clone(), params)
+    prompts, want = shared["llm_f32"]["prompts"], shared["llm_f32"]["tokens"]
+    n_new = len(want[0])
+    f32 = dataclasses.replace(models.gpt2_small(), dtype="float32")
+    enc = [load_tokenizer("byte").encode(p) for p in prompts]
+    row = {}
+    t0 = time.perf_counter()
+    tp = _spawn.run(_serving_rank, 2, shared_params, prompts, n_new,
+                    "tensor_parallel_size", timeout=600)
+    row["tp_s"] = time.perf_counter() - t0
+    for rank, r in enumerate(tp):
+        _check("error" not in r, f"tensor=2 rank {rank} failed:\n{r.get('error')}")
+        _check(r["cache_k"][3] == f32.kv_heads // 2,
+               f"tensor=2 rank {rank}'s cache holds {r['cache_k'][3]} kv heads, expected "
+               f"{f32.kv_heads // 2} of {f32.kv_heads}")
+        _check_same_tokens(f"tensor=2 (rank {rank})", params, f32, enc, r["tokens"], want)
+    last = torch.zeros(8, dtype=torch.long, device="cuda")
+    pos = torch.full((8,), 300, device="cuda")
+    temps = torch.zeros(8, device="cuda")
+    dense_cache = model_runner.init_slot_cache(f32, 8, 1024, device="cuda")
+    with torch.inference_mode():
+        dense = _profile(lambda: model_runner.decode(params, last, pos, dense_cache, temps,
+                                                     None, config=f32))
+    del dense_cache
+
+    def step(profile):
+        return {k: profile[k] for k in ("wall_ms", "device_ms", "device_busy_share")}
+
+    row["tensor2"] = {"backend": "gloo", "ranks_on_one_card": 2,
+                      "cache_k_per_rank": tp[0]["cache_k"], "serve": tp[0]["times"],
+                      "decode_step_per_rank": [step(r["decode_step"]) for r in tp],
+                      "decode_step_dense_f32": step(dense),
+                      "decode_step_rank0_top": tp[0]["decode_step"]["top"]}
+    t0 = time.perf_counter()
+    try:
+        pp = _spawn.run(_serving_rank, 2, shared_params, prompts, n_new,
+                        "pipeline_parallel_size", timeout=180)
+    except (RuntimeError, TimeoutError) as e:  # a rank died or hung
+        pp = [{"error": f"{type(e).__name__}: {e}"}] * 2
+    row["pp_s"] = time.perf_counter() - t0
+    errors = [r["error"] for r in pp if "error" in r]
+    if errors:
+        # Only the stage hop's transport may fail (an error in it, a rank
+        # it ends, a hop that never completes); anything else is a fault.
+        _check(_transport_failures(errors),
+               f"pipeline=2 failed outside the stage hop:\n{errors[0]}")
+        row["pipeline2"] = {"ran": False, "error": errors[0].strip().splitlines()[-1]}
+    else:
+        for rank, r in enumerate(pp):
+            _check(r["cache_k"][0] == f32.n_layers // 2,
+                   f"pipeline=2 rank {rank}'s cache holds {r['cache_k'][0]} layers")
+            _check_same_tokens(f"pipeline=2 (rank {rank})", params, f32, enc,
+                               r["tokens"], want)
+        row["pipeline2"] = {"ran": True, "cache_k_per_rank": pp[0]["cache_k"],
+                            "serve": pp[0]["times"]}
+    del shared_params
+    torch.cuda.ipc_collect()
+    print("[llm_parallel] " + json.dumps(row))
+    return row
+
+
 # The main path's kernels as the kernels line names them: (the wrapper in
 # ray_tpu_torch.ops._kernels that launches it, whether it is the fp32
 # kernel, the source under ray_tpu_torch/csrc that holds it, the line of
@@ -1601,15 +1958,18 @@ def main() -> int:
 
     # Each path of the main path with the counts set to 0 just before it
     # and read just after; the paths that train must launch every kernel
-    # (they take fp32 and bf16 steps). Phase 7's ranks of world size 2 count
-    # their own launches and copies, which it returns, and they are added.
+    # (they take fp32 and bf16 steps). The ranks of phases 7 and 9 count
+    # their own launches and copies, which the phase returns, and they are
+    # added.
     shared = {}
     paths = (("forward", inference(phase_forward), False),
              ("serve", inference(lambda: phase_serve(shared)), False),
              ("train", lambda: phase_train(shared), True),
              ("moe", lambda: phase_moe(card), True),
              ("parallel", lambda: phase_parallel(shared), True),
-             ("llm", inference(lambda: phase_llm(shared)), False))
+             ("llm", inference(lambda: phase_llm(shared)), False),
+             ("train_backend", lambda: phase_train_backend(shared), True),
+             ("llm_parallel", lambda: phase_llm_parallel(shared), False))
     launches = dict.fromkeys(_KERNELS, 0)
     for name, run, must_launch in paths:
         for w in wrappers:
@@ -1617,7 +1977,7 @@ def main() -> int:
         result = run()
         total = {"launches": _launch_counts(),
                  "copies": {w.__name__: w.copies for w in wrappers}}
-        if name == "parallel":
+        if name in ("parallel", "train_backend"):
             total = _add_counts(total, result)
         counted, copies = total["launches"], total["copies"]
         print(f"[{name}] launches " + json.dumps(counted))

@@ -7,15 +7,17 @@ routing; the optimizers; ring attention), the transformer model family
 (dense and MoE; inference and training, on one device or sharded over a
 DeviceMesh: data, fsdp, tensor, expert), the parallel layer (meshes,
 sharding rules, the SPMD pipeline, multi-slice meshes; over
-torch.distributed and DTensor), and the dense single-device LLM engine.
+torch.distributed and DTensor), the LLM engine (on one device, or
+tensor- or pipeline-parallel over a process group), and the Train
+backend (process-group setup, gradient and parameter sync, checkpoints).
 ``interop.params_from_jax`` carries a JAX parameter tree across.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU.
 """
 
-from ray_tpu_torch import interop, llm, models, ops, parallel
+from ray_tpu_torch import interop, llm, models, ops, parallel, train
 
 __version__ = "0.1.0"
 
-__all__ = ["interop", "llm", "models", "ops", "parallel", "__version__"]
+__all__ = ["interop", "llm", "models", "ops", "parallel", "train", "__version__"]

@@ -21,9 +21,16 @@ sampling with logprobs and logit_bias, guided JSON, speculative
 decoding, multi-LoRA and .npz checkpoints. The engine is synchronous;
 ``generate`` serializes callers on a lock.
 
-Not here: tensor and pipeline parallelism raise NotImplementedError
-(ROADMAP.md §1 item 11); disaggregated prefill/decode, AsyncLLMEngine and
-the engine's trace spans wait for the runtime (item 6); orbax checkpoint
+Tensor and pipeline parallelism (``tensor_parallel_size``,
+``pipeline_parallel_size``) run one engine per rank of the default
+torch.distributed process group, every rank on the same requests
+(ray_tpu runs one engine over all devices): the runner is then one
+rank's part (model_runner.TensorParallel, pp_runner.PPRunner) and the
+scheduler stays the same. They take and refuse what ray_tpu's take and
+refuse, with its errors.
+
+Not here: disaggregated prefill/decode, AsyncLLMEngine and the engine's
+trace spans wait for the runtime (ROADMAP.md §1 item 6); orbax checkpoint
 directories raise (the port reads .npz only; ROADMAP.md §3).
 """
 
@@ -46,8 +53,6 @@ from ray_tpu_torch.llm.kv_pages import KVPageError
 from ray_tpu_torch.llm.tokenizer import load_tokenizer
 from ray_tpu_torch.models import transformer as tfm
 
-_PARALLEL = ("not ported yet (ROADMAP.md §1 item 11: serving with tensor or "
-             "pipeline parallelism over ray_tpu_torch.parallel)")
 _RUNTIME = "waits for the runtime core (ROADMAP.md §1 item 6)"
 
 # Top-k width of the device logprob output (vLLM max_logprobs).
@@ -102,10 +107,6 @@ class LLMEngine:
             raise NotImplementedError(
                 "MoE decode is not wired into the slot engine yet; train with "
                 "MoE (models.transformer) and serve dense.")
-        if (int(config.tensor_parallel_size or 1) > 1
-                or int(config.pipeline_parallel_size or 1) > 1):
-            raise NotImplementedError(
-                f"tensor/pipeline parallel serving: {_PARALLEL}")
         tok_vocab = len(self.tokenizer)
         if tok_vocab > c.vocab_size:
             raise ValueError(
@@ -125,6 +126,35 @@ class LLMEngine:
                 params = tfm.init_params(gen, c, device=device)
         B = config.max_num_seqs
         dc = config.resolve_speculative_model()
+        # The runner: model_runner on one device, or one rank's part of a
+        # tensor- or pipeline-parallel runner (TensorParallel, PPRunner),
+        # each with model_runner's signatures, so the host-side scheduler
+        # below is the same. Every rank of the process group runs this
+        # engine on the same requests: its choices are the same on every
+        # rank (the logits are; seeds and samplers draw from config.seed).
+        self._mr = model_runner
+        tp = int(config.tensor_parallel_size or 1)
+        pp = int(config.pipeline_parallel_size or 1)
+        if pp > 1:
+            if tp > 1:
+                raise NotImplementedError(
+                    "pipeline_parallel_size and tensor_parallel_size "
+                    "cannot be combined yet")
+            if config.prefill_chunk:
+                raise NotImplementedError(
+                    "chunked prefill is not supported with "
+                    "pipeline_parallel_size > 1")
+            if config.enable_prefix_caching:
+                raise NotImplementedError(
+                    "prefix caching is not supported with "
+                    "pipeline_parallel_size > 1")
+            if dc is not None:
+                raise NotImplementedError(
+                    "speculative decoding is not supported with "
+                    "pipeline_parallel_size > 1")
+            from ray_tpu_torch.llm.pp_runner import PPRunner
+
+            self._mr = PPRunner(c, pp, device=device)
         # Paged KV (llm/kv_pages.py): fixed-size pages + per-slot block
         # tables replace the dense per-slot [max_len] cache. Host-side
         # accounting lives in the allocator; scheduling stays the same
@@ -133,6 +163,11 @@ class LLMEngine:
         self.kv_alloc = None
         self._page_tables: list[list[int]] = []
         if self.page_size > 0:
+            if pp > 1 or tp > 1:
+                raise ValueError(
+                    "kv_page_size (paged KV) is not supported together "
+                    "with tensor/pipeline parallelism, speculative "
+                    "decoding, or chunked prefill yet")
             if dc is not None:
                 raise ValueError(
                     "kv_page_size (paged KV) is not supported together "
@@ -152,9 +187,24 @@ class LLMEngine:
             self._block_tables = np.zeros((B, self._max_blocks), np.int64)
             self.cache = kv_pages.init_page_pool(c, n_pages, self.page_size,
                                                  device=device)
-        else:
-            self.cache = model_runner.init_slot_cache(c, B, self.max_len,
-                                                      device=device)
+        # Tensor parallelism: a 1-D "tensor" mesh; this rank keeps its
+        # shards of the weights (models.partition_specs) and its kv heads
+        # of the slot cache (model_runner.TensorParallel).
+        self.mesh = None
+        if tp > 1:
+            if c.n_heads % tp or c.kv_heads % tp:
+                raise ValueError(
+                    f"tensor_parallel_size={tp} must divide heads "
+                    f"({c.n_heads}) and kv_heads ({c.kv_heads})")
+            self._mr = model_runner.TensorParallel(model_runner.serving_mesh(
+                "tensor", tp, self.device.type, "tensor_parallel_size"))
+            self.mesh = self._mr.mesh
+            params = self._mr.shard_params(params, c)
+        elif pp > 1:
+            params = self._mr.shard_params(params)
+        if self.page_size == 0:
+            self.cache = self._mr.init_slot_cache(c, B, self.max_len,
+                                                  device=device)
         self.params = params
         # Host-side scheduling state, uploaded per decode call: keeping
         # positions on the host avoids a device→host sync per slot.
@@ -244,10 +294,11 @@ class LLMEngine:
         self.lora_ix = np.zeros((B,), np.int64)
         if config.lora:
             if (config.prefill_chunk or config.enable_prefix_caching
-                    or dc is not None):
+                    or dc is not None or pp > 1):
                 raise ValueError(
                     "lora is not supported together with chunked "
-                    "prefill, prefix caching, or speculative decoding")
+                    "prefill, prefix caching, speculative decoding, or "
+                    "pipeline parallelism")
             from ray_tpu_torch.llm.lora import LoRAManager
 
             hdh = c.n_heads * c.head_dim
@@ -309,8 +360,10 @@ class LLMEngine:
     def _lora_kw(self, aix) -> dict:
         if self.lora_mgr is None:
             return {}
-        return {"lora": self.lora_mgr.lora_tree(),
-                "lora_ix": self._dev(np.asarray(aix, np.int64))}
+        tree = self.lora_mgr.lora_tree()
+        if isinstance(self._mr, model_runner.TensorParallel):
+            tree = self._mr.lora(tree)
+        return {"lora": tree, "lora_ix": self._dev(np.asarray(aix, np.int64))}
 
     # -- request intake ----------------------------------------------------
 
@@ -466,11 +519,13 @@ class LLMEngine:
         # Batched admission (vLLM batches prefills): same-bucket prompts
         # prefill in ONE [N, S] pass. Prefix caching, chunked prefill
         # and speculative drafts need per-prompt handling (different
-        # pos0 / a draft mirror), so those engines admit one at a time.
+        # pos0 / a draft mirror), so those engines admit one at a time,
+        # as does the pipeline runner, which has no batched prefill.
         cfg = self.config
         batchable = (cfg.prefill_chunk == 0
                      and not cfg.enable_prefix_caching
-                     and self.draft is None)
+                     and self.draft is None
+                     and hasattr(self._mr, "prefill_batch"))
         admits: list[tuple[int, Request]] = []
         for slot in range(len(self.slots)):
             if self.slots[slot] is not None:
@@ -565,7 +620,7 @@ class LLMEngine:
                     self.params, self._dev(toks), lens, self._dev(bts),
                     self.cache, config=self.model_config, **lkw)
             else:
-                logits, self.cache = model_runner.prefill_batch(
+                logits, self.cache = self._mr.prefill_batch(
                     self.params, self._dev(toks), lens, slots_arr,
                     self.cache, config=self.model_config, **lkw)
             logits_np = logits.cpu().numpy()
@@ -647,12 +702,12 @@ class LLMEngine:
             if off == 0 and len(part) == L:
                 # Whole prompt in one go: within-chunk attention ([S,S]
                 # scores, no history pass) is the cheapest path.
-                last_logits, self.cache = model_runner.prefill(
+                last_logits, self.cache = self._mr.prefill(
                     self.params, self._dev(padded), len(part), slot,
                     self.cache, config=self.model_config,
                     **self._lora_kw([lora_ix]))
             else:
-                last_logits, self.cache = model_runner.prefill_at(
+                last_logits, self.cache = self._mr.prefill_at(
                     self.params, self._dev(padded), len(part), off, slot,
                     self.cache, config=self.model_config)
             off += len(part)
@@ -1094,7 +1149,7 @@ class LLMEngine:
                 self.cache, temps, self._rng, config=self.model_config,
                 **lkw)
         else:
-            toks, logits, self.cache = model_runner.decode(
+            toks, logits, self.cache = self._mr.decode(
                 self.params, self._dev(self.last_tokens),
                 self._dev(self.positions), self.cache, temps, self._rng,
                 config=self.model_config, **lkw)
@@ -1189,7 +1244,7 @@ class LLMEngine:
             d["params"], self._dev(cur), self._dev(pos), d["cache"], zero_t,
             self._rng, config=d["config"])
         tokens_window = np.stack(window, axis=1)  # [B, k]
-        logits, self.cache = model_runner.verify(
+        logits, self.cache = self._mr.verify(
             self.params, self._dev(tokens_window), self._dev(self.positions),
             self.cache, config=self.model_config)
         greedy = logits.argmax(-1).cpu().numpy()  # [B, k]

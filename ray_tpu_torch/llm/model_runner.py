@@ -27,12 +27,14 @@ to the host each step.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ray_tpu_torch.models.transformer import (
     TransformerConfig,
     _expand_gqa,
     _unstack_layers,
     lm_head,
+    partition_specs,
 )
 from ray_tpu_torch.ops.attention import dot_product_attention
 from ray_tpu_torch.ops.layers import (
@@ -55,35 +57,174 @@ def init_slot_cache(config: TransformerConfig, num_slots: int, max_len: int,
     }
 
 
+# -- tensor parallelism ---------------------------------------------------------
+
+def serving_mesh(axis: str, size: int, device_type: str, option: str):
+    """The 1-D mesh of ``size`` ranks along ``axis`` that this rank serves
+    in, over the default process group; with more ranks than ``size``, the
+    rest form further meshes beside it (a ``data`` dim), each serving
+    alone. A collective: every rank of the group calls it. Too few ranks
+    raise ValueError (the counterpart of ray_tpu's "only N devices
+    visible"), as does a world that ``size`` does not divide."""
+    from ray_tpu_torch.parallel import MeshConfig
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world < size:
+        raise ValueError(f"{option}={size} but only {world} ranks in the "
+                         f"process group")
+    mesh = MeshConfig(**{axis: size}).build(device_type)
+    return mesh[axis] if mesh.ndim > 1 else mesh
+
+
+class TensorParallel:
+    """One rank's part of tensor-parallel serving over a 1-D ``tensor``
+    mesh (ray_tpu shards the same layout with GSPMD). Heads and FFN hidden
+    units split over the mesh (``models.partition_specs``), and the vocab
+    in the embedding and the head; each rank holds its shards as plain
+    tensors, and the runner's shared pieces meet the other ranks through
+    explicit collectives on them:
+
+      - the embedding: a masked lookup in this rank's rows, one all-reduce;
+      - attention and the FFN: column-parallel in, row-parallel out, one
+        all-reduce after each output projection (``_wo_proj``, ``_mlp``);
+      - the head: each rank's vocab shard, all-gathered whole.
+
+    The slot cache holds this rank's kv heads. Explicit collectives on
+    local tensors, not DTensor: gloo gathers through DTensor crash ranks
+    holding CUDA tensors, where all_reduce and all_gather_into_tensor work
+    (tests/gloo_cuda_report.py), so two gloo ranks can share one card.
+
+    The runner functions the engine calls are methods here, with this
+    split bound in (``tp=self``)."""
+
+    def __init__(self, mesh):
+        from ray_tpu_torch.parallel._collectives import axis_group
+        from ray_tpu_torch.parallel.mesh import AXIS_TENSOR
+
+        self.mesh = mesh
+        self.group, self.rank, self.size = axis_group(mesh, AXIS_TENSOR)
+
+    def shard_params(self, params, config: TransformerConfig):
+        """This rank's shards of a whole parameter tree, as plain tensors
+        (every rank passes the same tree; nothing is sent)."""
+        from ray_tpu_torch.ops.tree import tree_map
+        from ray_tpu_torch.parallel import shard_params
+
+        placed, _ = shard_params(params, self.mesh, partition_specs(config))
+        return tree_map(lambda t: t.to_local(), placed)
+
+    def reduce(self, x):
+        """The sum over the ranks of their partial ``x``."""
+        x = x.contiguous()
+        dist.all_reduce(x, group=self.group)
+        return x
+
+    def lookup(self, table, tokens):
+        """Rows ``tokens`` of a table split over its rows (the vocab): each
+        rank looks up the ids in its range, zeros elsewhere, and the sum
+        over the ranks is exact."""
+        n = table.shape[0]
+        local = tokens - self.rank * n
+        rows = table[local.clamp(0, n - 1)]
+        inside = ((local >= 0) & (local < n))[..., None]
+        return self.reduce(torch.where(inside, rows, torch.zeros_like(rows)))
+
+    def gather_vocab(self, logits):
+        """[..., V/n] vocab shards -> [..., V] on every rank."""
+        lead, width = logits.shape[:-1], logits.shape[-1]
+        part = logits.reshape(-1, width).contiguous()
+        out = part.new_empty((self.size * part.shape[0], width))
+        dist.all_gather_into_tensor(out, part, group=self.group)
+        return out.view(self.size, -1, width).transpose(0, 1).reshape(*lead, -1)
+
+    def lora(self, tree):
+        """This rank's part of LoRAManager.lora_tree() (views): the
+        column-parallel targets' B factors keep this rank's output columns,
+        the row-parallel output projection's A factor its input rows."""
+        out = dict(tree)
+        for tgt, f in tree.items():
+            if tgt == "scales":
+                continue
+            a, b = f["A"], f["B"]
+            if tgt == "wo":
+                n = a.shape[2] // self.size
+                a = a[:, :, self.rank * n:(self.rank + 1) * n]
+            else:
+                n = b.shape[-1] // self.size
+                b = b[..., self.rank * n:(self.rank + 1) * n]
+            out[tgt] = {"A": a, "B": b}
+        return out
+
+    def init_slot_cache(self, config: TransformerConfig, num_slots: int,
+                        max_len: int, *, device="cuda"):
+        """This rank's part of the slot cache: its kv heads, dim 3 of
+        [L, B, T, KV, Dh]."""
+        c = config
+        shape = (c.n_layers, num_slots, max_len, c.kv_heads // self.size, c.head_dim)
+        return {"k": torch.zeros(shape, dtype=c.compute_dtype, device=device),
+                "v": torch.zeros(shape, dtype=c.compute_dtype, device=device)}
+
+    def prefill(self, *args, **kw):
+        return prefill(*args, tp=self, **kw)
+
+    def prefill_batch(self, *args, **kw):
+        return prefill_batch(*args, tp=self, **kw)
+
+    def prefill_at(self, *args, **kw):
+        return prefill_at(*args, tp=self, **kw)
+
+    def verify(self, *args, **kw):
+        return verify(*args, tp=self, **kw)
+
+    def decode(self, *args, **kw):
+        return decode(*args, tp=self, **kw)
+
+
 def _norm1(x, lp, c):
     if c.arch == "gpt2":
         return layer_norm(x, lp["ln1"]["w"], lp["ln1"]["b"])
     return rms_norm(x, lp["ln1"]["w"])
 
 
-def _mlp(x, lp, c, dt):
+def _mlp(x, lp, c, dt, tp=None):
+    """The FFN sublayer. Under tensor parallelism each rank holds its
+    share of the hidden units: the output projection's partial sums meet
+    in one all-reduce, and the output bias is added once after it."""
+    m = lp["mlp"]
     if c.arch == "gpt2":
         h = layer_norm(x, lp["ln2"]["w"], lp["ln2"]["b"])
-        return gelu_mlp(h, lp["mlp"]["w_in"].to(dt), lp["mlp"]["b_in"].to(dt),
-                        lp["mlp"]["w_out"].to(dt), lp["mlp"]["b_out"].to(dt))
+        b_out = m["b_out"].to(dt)
+        out = gelu_mlp(h, m["w_in"].to(dt), m["b_in"].to(dt), m["w_out"].to(dt),
+                       b_out if tp is None else 0.0)
+        return out if tp is None else tp.reduce(out) + b_out
     h = rms_norm(x, lp["ln2"]["w"])
-    return swiglu(h, lp["mlp"]["w_gate"].to(dt), lp["mlp"]["w_up"].to(dt),
-                  lp["mlp"]["w_down"].to(dt))
+    out = swiglu(h, m["w_gate"].to(dt), m["w_up"].to(dt), m["w_down"].to(dt))
+    return out if tp is None else tp.reduce(out)
 
 
-def _final_logits(x, params, c, dt):
+def _final_logits(x, params, c, dt, tp=None):
+    """Float32 logits; under tensor parallelism each rank's vocab shard's,
+    gathered so every rank holds all of them."""
     if c.arch == "gpt2":
         x = layer_norm(x, params["final_norm"]["w"], params["final_norm"]["b"])
     else:
         x = rms_norm(x, params["final_norm"]["w"])
-    return lm_head(x, params, c)
+    logits = lm_head(x, params, c)
+    return logits if tp is None else tp.gather_vocab(logits)
 
 
-def embed_tokens(params, tokens, positions, c, dt):
+def _token_rows(params, tokens, dt, tp=None):
+    """The token embedding's rows for ``tokens``; under tensor parallelism
+    the table is split over the vocab (TensorParallel.lookup)."""
+    table = params["embed"]["tokens"]
+    return (table[tokens] if tp is None else tp.lookup(table, tokens)).to(dt)
+
+
+def embed_tokens(params, tokens, positions, c, dt, tp=None):
     """Token (+ learned-position / rope-table) embedding. Returns (x,
     rope) where rope is None for gpt2 or the (cos, sin) tables for rope
     archs."""
-    x = params["embed"]["tokens"][tokens].to(dt)
+    x = _token_rows(params, tokens, dt, tp)
     if c.arch == "gpt2":
         x = x + params["embed"]["pos"][positions].to(dt)
         return x, None
@@ -121,9 +262,11 @@ def _lora_qkv(h, q, k, v, ll, lora_ctx, dt):
     return out["wq"], out["wk"], out["wv"]
 
 
-def _wo_proj(o, lp, ll, lora_ctx, dt):
+def _wo_proj(o, lp, ll, lora_ctx, dt, tp=None):
     """Output projection with optional LoRA delta (the delta's input is
-    the flattened [B, S, H*Dh] attention output)."""
+    the flattened [B, S, H*Dh] attention output). Under tensor
+    parallelism ``o`` holds this rank's heads: its partial product (and
+    LoRA delta) meets the other ranks' in one all-reduce."""
     out = torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"].to(dt))
     if ll is not None and "wo" in ll:
         from ray_tpu_torch.llm.lora import lora_delta
@@ -131,11 +274,11 @@ def _wo_proj(o, lp, ll, lora_ctx, dt):
         aix, scales = lora_ctx
         flat = o.reshape(o.shape[0], o.shape[1], -1)
         out = out + lora_delta(flat, ll["wo"], aix, scales).to(dt)
-    return out
+    return out if tp is None else tp.reduce(out)
 
 
 def make_prefill_body(c, dt, positions, rope, slot, *, cache_write=None,
-                      lora_ctx=None):
+                      lora_ctx=None, tp=None):
     """Per-layer body for whole-prompt prefill: ``body(x, lp, kc, vc,
     ll)`` with one layer's params, its k/v cache and its LoRA factors
     (None without LoRA); returns the layer's output. Shared by
@@ -145,6 +288,8 @@ def make_prefill_body(c, dt, positions, rope, slot, *, cache_write=None,
     ``cache_write(kc, k)`` writes a layer's new K (or V) rows into the
     cache in place; the default writes one slot's rows at ``slot``.
     ``lora_ctx`` is (per-row adapter index [B], per-adapter scales).
+    ``tp`` (TensorParallel) runs the layer on this rank's heads and
+    hidden units.
     """
     if cache_write is None:
         def cache_write(cache_arr, new):
@@ -164,14 +309,14 @@ def make_prefill_body(c, dt, positions, rope, slot, *, cache_write=None,
         cache_write(vc, v)
         kf, vf = _expand_gqa(k, v, c)
         o = dot_product_attention(q, kf, vf, causal=True).to(dt)
-        x = x + _wo_proj(o, lp, ll, lora_ctx, dt)
-        return x + _mlp(x, lp, c, dt)
+        x = x + _wo_proj(o, lp, ll, lora_ctx, dt, tp)
+        return x + _mlp(x, lp, c, dt, tp)
 
     return body
 
 
 def make_decode_body(c, dt, positions, rope_tables, kmask, barange,
-                     lora_ctx=None, cache_update=None, cache_view=None):
+                     lora_ctx=None, cache_update=None, cache_view=None, tp=None):
     """Per-layer body for the all-slots decode step: ``body(x, lp, kc,
     vc, ll)`` with one layer's k/v cache. ``rope_tables`` are the
     per-slot [B,1,1,Dh/2] cos/sin gathers (None for gpt2).
@@ -210,8 +355,8 @@ def make_decode_body(c, dt, positions, rope_tables, kmask, barange,
         scores = torch.where(kmask[:, None, None, :], scores, -1e30)
         p = torch.softmax(scores, dim=-1)
         o = torch.einsum("bhst,bthk->bshk", p, vf.float()).to(dt)
-        x = x + _wo_proj(o, lp, ll, lora_ctx, dt)
-        return x + _mlp(x, lp, c, dt)
+        x = x + _wo_proj(o, lp, ll, lora_ctx, dt, tp)
+        return x + _mlp(x, lp, c, dt, tp)
 
     return body
 
@@ -407,7 +552,7 @@ def _lora_ctx(lora, lora_ix):
 
 
 def prefill(params, tokens, true_len: int, slot: int, cache, *,
-            config: TransformerConfig, lora=None, lora_ix=None):
+            config: TransformerConfig, lora=None, lora_ix=None, tp=None):
     """Run one padded prompt [1, S] and write K/V into cache slot.
 
     Returns (last_logits [V] float32, cache). ``true_len`` is the
@@ -415,25 +560,26 @@ def prefill(params, tokens, true_len: int, slot: int, cache, *,
     true_len-1, so right-padding never leaks into the first sampled
     token (causal attention at that position only sees real tokens).
     ``lora`` is LoRAManager.lora_tree() and ``lora_ix`` [1] the row's
-    adapter index.
+    adapter index. ``tp`` (TensorParallel): ``params`` and ``cache`` are
+    this rank's shards, and every rank gets the whole logits.
     """
     c = config
     dt = c.compute_dtype
     _, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)
-    x, rope = embed_tokens(params, tokens, positions, c, dt)
+    x, rope = embed_tokens(params, tokens, positions, c, dt, tp)
     body = make_prefill_body(c, dt, positions, rope, slot,
-                             lora_ctx=_lora_ctx(lora, lora_ix))
+                             lora_ctx=_lora_ctx(lora, lora_ix), tp=tp)
     x = _run_layers(body, x, params, cache, c, lora)
     # LM head on the last real token only: prompt logits are never
     # needed, and skipping the [S, V] head matmul saves most of the
     # prefill's head work.
     xl = x[:, true_len - 1:true_len]
-    return _final_logits(xl, params, c, dt)[0, 0], cache
+    return _final_logits(xl, params, c, dt, tp)[0, 0], cache
 
 
 def prefill_batch(params, tokens, true_lens, slots, cache, *,
-                  config: TransformerConfig, lora=None, lora_ix=None):
+                  config: TransformerConfig, lora=None, lora_ix=None, tp=None):
     """Batched whole-prompt prefill: N same-bucket prompts in one pass.
     tokens [N, S], true_lens [N], slots [N] (host ints) — distinct
     in-range indices for real rows; PAD rows use an OUT-OF-RANGE index
@@ -453,34 +599,34 @@ def prefill_batch(params, tokens, true_lens, slots, cache, *,
     dst = torch.tensor([slots[j] for j in rows], device=device)
     src = torch.tensor(rows, device=device)
     positions = torch.arange(S, device=device)
-    x, rope = embed_tokens(params, tokens, positions, c, dt)  # [N,S,D]
+    x, rope = embed_tokens(params, tokens, positions, c, dt, tp)  # [N,S,D]
 
     def scatter_rows(cache_arr, new):
         cache_arr[dst, :S] = new[src]
 
     body = make_prefill_body(c, dt, positions, rope, None,
                              cache_write=scatter_rows,
-                             lora_ctx=_lora_ctx(lora, lora_ix))
+                             lora_ctx=_lora_ctx(lora, lora_ix), tp=tp)
     x = _run_layers(body, x, params, cache, c, lora)
     lens = torch.as_tensor(true_lens, device=device)
     xl = x[torch.arange(N, device=device), lens - 1][:, None]  # [N,1,D]
-    return _final_logits(xl, params, c, dt)[:, 0], cache
+    return _final_logits(xl, params, c, dt, tp)[:, 0], cache
 
 
-def _offset_embed(params, tokens, positions, c, dt):
+def _offset_embed(params, tokens, positions, c, dt, tp=None):
     """Embedding of rows at global ``positions`` (any shape matching
     ``tokens``): padding rows may index past the position tables, so the
     positions are clamped — those rows are masked out of every later
     attention anyway. Returns (x, safe positions)."""
     safe_pos = positions.clamp_max(c.max_seq_len - 1)
-    x = params["embed"]["tokens"][tokens].to(dt)
+    x = _token_rows(params, tokens, dt, tp)
     if c.arch == "gpt2":
         x = x + params["embed"]["pos"][safe_pos].to(dt)
     return x, safe_pos
 
 
 def prefill_at(params, tokens, true_len: int, pos0: int, slot: int, cache,
-               *, config: TransformerConfig):
+               *, config: TransformerConfig, tp=None):
     """Continuation prefill: write a prompt chunk [1, S] into slot rows
     [pos0, pos0+S) and attend over the slot's full history.
 
@@ -506,11 +652,12 @@ def prefill_at(params, tokens, true_len: int, pos0: int, slot: int, cache,
 
     return chunk_prefill(params, tokens, true_len, pos0, cache, config=config,
                          cache_write=cache_write,
-                         cache_view=lambda cache_arr: cache_arr[slot:slot + 1])
+                         cache_view=lambda cache_arr: cache_arr[slot:slot + 1],
+                         tp=tp)
 
 
 def chunk_prefill(params, tokens, true_len: int, pos0: int, cache, *,
-                  config: TransformerConfig, cache_write, cache_view):
+                  config: TransformerConfig, cache_write, cache_view, tp=None):
     """A chunk [1, S] at global positions [pos0, pos0+S) attending over
     its sequence's history, shared by prefill_at (a dense slot) and
     kv_pages.paged_prefill_at (a block table): ``cache_write(kc, k)``
@@ -520,7 +667,7 @@ def chunk_prefill(params, tokens, true_len: int, pos0: int, cache, *,
     dt = c.compute_dtype
     _, S = tokens.shape
     positions = pos0 + torch.arange(S, device=tokens.device)
-    x, safe_pos = _offset_embed(params, tokens, positions, c, dt)
+    x, safe_pos = _offset_embed(params, tokens, positions, c, dt, tp)
     rope = (None if c.arch == "gpt2" else
             rope_frequencies(c.head_dim, c.max_seq_len, theta=c.rope_theta,
                              device=x.device))
@@ -536,12 +683,12 @@ def chunk_prefill(params, tokens, true_len: int, pos0: int, cache, *,
         kf, vf = _expand_gqa(cache_view(kc), cache_view(vc), c)
         o = dot_product_attention(q, kf, vf, causal=True,
                                   q_offset=pos0).to(dt)
-        x = x + torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"].to(dt))
-        return x + _mlp(x, lp, c, dt)
+        x = x + _wo_proj(o, lp, None, None, dt, tp)
+        return x + _mlp(x, lp, c, dt, tp)
 
     x = _run_layers(body, x, params, cache, c)
     xl = x[:, true_len - 1:true_len]
-    return _final_logits(xl, params, c, dt)[0, 0], cache
+    return _final_logits(xl, params, c, dt, tp)[0, 0], cache
 
 
 def read_prefix(cache, slot: int, length: int):
@@ -562,7 +709,8 @@ def install_prefix(cache, slot: int, k_prefix, v_prefix):
     return cache
 
 
-def verify(params, tokens, positions, cache, *, config: TransformerConfig):
+def verify(params, tokens, positions, cache, *, config: TransformerConfig,
+           tp=None):
     """Speculative-decoding verify step: score a window of K proposed
     tokens per slot in ONE target-model pass (greedy acceptance is done
     host-side in the engine).
@@ -583,7 +731,7 @@ def verify(params, tokens, positions, cache, *, config: TransformerConfig):
     T = cache["k"].shape[2]
     device = tokens.device
     posmat = positions[:, None] + torch.arange(K, device=device)[None, :]
-    x, safe_pos = _offset_embed(params, tokens, posmat, c, dt)  # [B, K, D]
+    x, safe_pos = _offset_embed(params, tokens, posmat, c, dt, tp)  # [B, K, D]
     rope = None
     if c.arch != "gpt2":
         cos, sin = rope_frequencies(c.head_dim, c.max_seq_len,
@@ -615,11 +763,11 @@ def verify(params, tokens, positions, cache, *, config: TransformerConfig):
         scores = torch.where(kmask[:, None], scores, -1e30)
         p = torch.softmax(scores, dim=-1)
         o = torch.einsum("bhqt,bthk->bqhk", p, vf.float()).to(dt)
-        x = x + torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"].to(dt))
-        return x + _mlp(x, lp, c, dt)
+        x = x + _wo_proj(o, lp, None, None, dt, tp)
+        return x + _mlp(x, lp, c, dt, tp)
 
     x = _run_layers(body, x, params, cache, c)
-    return _final_logits(x, params, c, dt), cache
+    return _final_logits(x, params, c, dt, tp), cache
 
 
 def decode_rope_tables(rope, positions):
@@ -631,7 +779,7 @@ def decode_rope_tables(rope, positions):
 
 
 def decode(params, tokens, positions, cache, temperature, rng, *,
-           config: TransformerConfig, lora=None, lora_ix=None):
+           config: TransformerConfig, lora=None, lora_ix=None, tp=None):
     """One decode step for all slots: tokens [B], positions [B].
 
     Writes each slot's new K/V row at its own position, attends with the
@@ -649,7 +797,7 @@ def decode(params, tokens, positions, cache, temperature, rng, *,
     device = tokens.device
     safe_pos = positions.clamp_max(c.max_seq_len - 1)
     x, rope = embed_tokens(params, tokens[:, None], safe_pos[:, None],
-                           c, dt)  # [B,1,D]
+                           c, dt, tp)  # [B,1,D]
     kmask = torch.arange(T, device=device)[None, :] <= positions[:, None]
     rows = torch.arange(B, device=device)
     cache_update = None
@@ -666,8 +814,8 @@ def decode(params, tokens, positions, cache, temperature, rng, *,
 
     body = make_decode_body(c, dt, positions, decode_rope_tables(rope, safe_pos),
                             kmask, rows, lora_ctx=_lora_ctx(lora, lora_ix),
-                            cache_update=cache_update)
+                            cache_update=cache_update, tp=tp)
     x = _run_layers(body, x, params, cache, c, lora)
-    logits = _final_logits(x, params, c, dt)[:, 0]  # [B, V]
+    logits = _final_logits(x, params, c, dt, tp)[:, 0]  # [B, V]
     toks = sample_tokens(logits, temperature, rng)
     return toks, logits, cache

@@ -10,11 +10,14 @@ it turned into a numpy array. ``fn`` must be a module-level function: the
 children import its module, so that module must not import JAX.
 
 The call raises if any rank raises, dies or has not finished within
-``timeout`` seconds, and it stops every process it started.
+``timeout`` seconds, and it stops every process it started. The group
+gets the same timeout, so a collective that a rank waits on in vain
+fails there too.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 import queue
 import tempfile
@@ -44,10 +47,11 @@ def _to_numpy(tree):
     return tree
 
 
-def _child(fn, rank, world_size, backend, store, results, args):
+def _child(fn, rank, world_size, backend, store, timeout, results, args):
     try:
         dist.init_process_group(backend, init_method=f"file://{store}",
-                                rank=rank, world_size=world_size)
+                                rank=rank, world_size=world_size,
+                                timeout=datetime.timedelta(seconds=timeout))
         try:
             out = _to_numpy(fn(rank, world_size, *args))
         finally:
@@ -81,7 +85,8 @@ def run(fn, world_size: int, *args, backend: str = "gloo",
     with tempfile.TemporaryDirectory() as tmp:
         store = os.path.join(tmp, "store")
         procs = [ctx.Process(target=_child, daemon=True,
-                             args=(fn, rank, world_size, backend, store, results, args))
+                             args=(fn, rank, world_size, backend, store, timeout, results,
+                                   args))
                  for rank in range(world_size)]
         for p in procs:
             p.start()

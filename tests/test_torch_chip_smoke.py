@@ -2,7 +2,9 @@
 backward kernels to, the pair count its bounds are built on, its kernels
 line, phase 6's routing and f32 GEMM helpers, phase 7's leaf-wise
 comparison, shard slicing and the launch counts its ranks report, and
-phase 8's merged-LoRA reference, token check and JSON prefix check."""
+phase 8's merged-LoRA reference, token check and JSON prefix check,
+phase 9's resumed-run check and data-parallel limit, and phase 10's
+reading of a pipeline rank's failure."""
 
 import math
 
@@ -380,3 +382,82 @@ def test_json_prefix_check(text, ok):
     break, an incomplete number that ends, or text past the document's
     end is caught."""
     assert chip_smoke._json_prefix_ok(text) is ok
+
+
+# -- phase 9 (train_backend) ----------------------------------------------------
+
+
+def _resume_on_cpu(monkeypatch, tmp_path, restore=None):
+    """Part (a)'s resumed-run check on tiny() in f32 on the CPU, in a
+    session of world size 1; ``restore`` replaces the checkpoint's load."""
+    from ray_tpu_torch import models
+    from ray_tpu_torch.ops.optim import FusedClipAdamW
+    from ray_tpu_torch.train import checkpoint, session
+
+    if restore is not None:
+        monkeypatch.setattr(checkpoint, "load_pytree", restore)
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    cfg = models.tiny(dtype="float32")
+    opt = FusedClipAdamW(learning_rate=1e-2, weight_decay=0.1, clip_norm=1.0)
+    g = torch.Generator().manual_seed(3)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (2, 17), generator=g)}
+               for _ in range(6)]
+
+    def fresh(seed):
+        params = models.init_params(torch.Generator().manual_seed(seed), cfg, device="cpu")
+        return params, opt.init(params)
+
+    session.set_session(session.TrainSession(0, 1, 0))
+    try:
+        return chip_smoke._resume_check(cfg, opt, batches, fresh, str(tmp_path / "runs"))
+    finally:
+        session.set_session(None)
+
+
+def test_resumed_steps_are_checked_bit_for_bit(monkeypatch, tmp_path):
+    """Steps 4-6 from the step-3 checkpoint equal the uninterrupted run's
+    bit for bit, and the check tells a restore that left the fresh state
+    in place."""
+    losses, again, bitwise, step_ms, saved, _, _ = _resume_on_cpu(monkeypatch, tmp_path)
+    assert bitwise and again == losses[3:] and len(step_ms) == 6
+    assert saved == "checkpoint_000000" and all(math.isfinite(x) for x in losses)
+    _, _, bitwise, _, _, _, _ = _resume_on_cpu(
+        monkeypatch, tmp_path / "faulty", restore=lambda path, target, device: target)
+    assert not bitwise
+
+
+def test_data_parallel_limit_tells_a_faulty_leaf():
+    """Part (b)'s limit: two half-batch gradients averaged against the
+    whole batch's differ only in the order of their sums (~1e-7 of a
+    leaf's max here), far inside 1e-4; a gradient halved in one leaf (a
+    sum where the mean belongs) is far outside it."""
+    w = torch.randn(8, 16, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(64, 8, generator=torch.Generator().manual_seed(1))
+
+    def grad(rows):
+        return torch.autograd.grad(torch.tanh(rows @ w.requires_grad_()).pow(2).mean(), w)[0]
+
+    whole, halves = grad(x), (grad(x[:32]) + grad(x[32:])) / 2
+    share = chip_smoke._worst_leaf_share([(halves - whole).abs().max().item()],
+                                         [whole.abs().max().item()])
+    assert share <= chip_smoke._DP2_TOL
+    faulty = chip_smoke._worst_leaf_share([(halves * 2 - whole).abs().max().item()],
+                                          [whole.abs().max().item()])
+    assert faulty > chip_smoke._DP2_TOL
+
+
+# -- phase 10 (llm_parallel) ----------------------------------------------------
+
+
+@pytest.mark.parametrize("errors, transport", [
+    (['  File "_collectives.py", in _exchange\n    for req in dist.batch_isend_irecv(ops):\n'
+      'RuntimeError: Bad address'], True),
+    (["RuntimeError: rank(s) [1] of _serving_rank died without a result"], True),
+    (["TimeoutError: _serving_rank on 2 ranks did not finish in 180 s"], True),
+    (['  File "pp_runner.py", in decode\nIndexError: index 1024 is out of bounds'], False),
+    (["ValueError: pipeline_parallel_size=2 but only 1 ranks in the process group"], False),
+])
+def test_pipeline_failure_must_come_from_the_stage_hop(errors, transport):
+    """Phase 10 accepts a pipeline rank's failure only where the stage
+    hop's transport raised or ended or stalled a rank."""
+    assert chip_smoke._transport_failures(errors) == transport

@@ -133,16 +133,24 @@ def test_engine_greedy_matches_model_generate(engines):
 
 
 @pytest.mark.parametrize("option", [
-    dict(tensor_parallel_size=2), dict(pipeline_parallel_size=2),
     dict(checkpoint_path=os.path.dirname(__file__)),
     dict(speculative_model=TMODEL,
          speculative_checkpoint_path=os.path.dirname(__file__)),
 ])
 def test_unported_engine_options_raise(option):
-    """What the port's engine still refuses: parallel serving, and orbax
-    checkpoint directories (it reads .npz only)."""
+    """What the port's engine still refuses: orbax checkpoint directories
+    (it reads .npz only)."""
     with pytest.raises(NotImplementedError):
         LLMEngine(LLMConfig(model=TMODEL, **GEOMETRY, **option), device="cpu")
+
+
+@pytest.mark.parametrize("option", ["tensor_parallel_size", "pipeline_parallel_size"])
+def test_parallel_engine_needs_enough_ranks(option):
+    """Tensor and pipeline parallelism serve over the ranks of the default
+    process group; without one the world is this process alone, too few
+    ranks (tests/test_torch_llm_parallel.py runs them on 2 gloo ranks)."""
+    with pytest.raises(ValueError, match=f"{option}=2 but only 1 ranks"):
+        LLMEngine(LLMConfig(model=TMODEL, **GEOMETRY, **{option: 2}), device="cpu")
 
 
 @pytest.mark.parametrize("option", [

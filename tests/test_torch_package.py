@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from ray_tpu_torch import interop, models, parallel
+from ray_tpu_torch import interop, models, parallel, train
 from ray_tpu_torch.llm import LLMConfig, LLMEngine, kv_pages, lora, model_runner
 from ray_tpu_torch.ops import layers
 from ray_tpu_torch.ops.optim import FusedClipAdamW
@@ -27,7 +27,11 @@ for name in names:
 missing = sorted({"ray_tpu_torch.ops.moe", "ray_tpu_torch.ops.optim",
                   "ray_tpu_torch.ops.ring_attention", "ray_tpu_torch.parallel._spawn",
                   "ray_tpu_torch.parallel.multislice", "ray_tpu_torch.llm.kv_pages",
-                  "ray_tpu_torch.llm.lora", "ray_tpu_torch.llm.guided"}
+                  "ray_tpu_torch.llm.lora", "ray_tpu_torch.llm.guided",
+                  "ray_tpu_torch.llm.pp_runner", "ray_tpu_torch.train",
+                  "ray_tpu_torch.train.backend", "ray_tpu_torch.train.checkpoint",
+                  "ray_tpu_torch.train.config", "ray_tpu_torch.train.session",
+                  "ray_tpu_torch.train.torch_utils"}
                  - set(sys.modules))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "ray_tpu"
@@ -42,9 +46,10 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, missing, bad = out.stdout.split(" ", 2)
-    assert int(n_modules) >= 27
-    assert missing == "[]"  # the MoE ops, the optimizers, the parallel slice
-    # and the LLM plane's paged KV, LoRA and guided modules were imported
+    assert int(n_modules) >= 34
+    assert missing == "[]"  # the MoE ops, the optimizers, the parallel slice,
+    # the LLM plane's paged KV, LoRA, guided and pipeline modules and the
+    # Train backend were imported
     assert bad.strip() == "[]"
 
 
@@ -60,7 +65,18 @@ ENTRY_POINTS = {
     "params_from_jax": lambda: interop.params_from_jax({"w": np.zeros(2)}),
     "LLMEngine": lambda: LLMEngine(LLMConfig(model="tiny")),
     "MeshConfig.build": lambda: parallel.MeshConfig().build(),
+    "TorchBackend.on_worker_setup": lambda: train.TorchBackend().on_worker_setup(
+        0, 1, "g", train.TorchConfig(distributed="on")),
+    "load_pytree": lambda: _load_saved_tree(),
 }
+
+
+def _load_saved_tree():
+    import tempfile
+
+    path = os.path.join(tempfile.mkdtemp(), "state")
+    train.save_pytree({"w": torch.zeros(2)}, path)
+    return train.load_pytree(path)
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))

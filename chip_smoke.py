@@ -109,13 +109,36 @@ Phases, in order; any failed check exits non-zero:
                where gloo's point-to-point transport takes CUDA tensors;
                where it does not, its error is printed (and any other
                error fails the run).
+ 11. async_llm — the main path, part 9: AsyncLLMEngine over an engine of
+               phase 4's setup (GPT-2 124M, phase 4's params, 8 slots):
+               8 concurrent asyncio callers with phase 4's prompts, 32
+               greedy tokens each, give phase 4's tokens; a streamed
+               request's increments, joined, are its output; on a paged
+               engine a request whose deadline has passed and one whose
+               deadline passes mid-decode raise TaskTimeoutError and
+               leave no slot or page behind; a sync generate() beside
+               async requests in flight lets both finish. Prints decode
+               tokens/s and TTFT beside phase 4's.
+ 12. rllib   — the main path, part 10: ray_tpu_torch.rllib on the card,
+               on CartPole-v1 and Pendulum-v1 written here from
+               gymnasium's equations: PPO at its defaults (8 envs,
+               64-step fragments, batch 512, 4 epochs of 128-row
+               minibatches, hidden (64, 64)) for 5 iterations; one PPO
+               learner update on the card against the same update on the
+               CPU (1e-4 of each leaf's max); a checkpoint restored into
+               a fresh PPO gives the same next iteration's weights bit
+               for bit; DQN and SAC for 4 iterations (3 past
+               learning_starts); BC and MARWIL on PPO's batches and CQL
+               on SAC's transitions for 3 iterations; an IMPALA and an
+               APPO learner update on one batch. Every loss finite;
+               prints env steps/s sampled and learner update ms.
 
-Each path of phases 3-10 is driven with the kernels' launch and copy
+Each path of phases 3-12 is driven with the kernels' launch and copy
 counts set to 0 just before it and read just after; launches made in
 phase 2 do not count, those of the ranks of phases 7 and 9 do. No path may make the
 wrappers copy an input (the model's q, k, v are views that TMA reads in
 place, on each rank's shard too). The kernels line sums the launches of
-phases 3-10, one entry for each kernel: a wrapper
+phases 3-12, one entry for each kernel: a wrapper
 sends bf16/fp16 to a wgmma kernel and fp32 to a kernel of its own
 (every product in 3xTF32 on the tensor cores), and counts the two apart.
 Phase 2 also requires two launches of the fp32 forward and of the fp32
@@ -123,6 +146,9 @@ backward kernels to give bitwise-equal results; the fp32 forward to take
 no longer than SDPA's fp32 forward at GPT-2 124M's shape; the bf16 dK/dV
 kernel alone and the fp32 dQ + dK/dV pair to take no longer than SDPA's
 whole backward at GPT-2 124M's training shape.
+
+Phases 11 and 12 reach no Pallas kernel's counterpart (the LLM runner
+and RLlib's MLPs launch none); their launches are counted all the same.
 
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
@@ -138,6 +164,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # Published peaks (NVIDIA data sheets, dense): memory bytes/s,
@@ -667,7 +694,7 @@ def phase_serve(shared: dict):
            "total_s": t_end - t0, "req0_equal_to_generate": got == ref,
            "req0_min_top2_margin": margins.min().item()}
     print("[serve] " + json.dumps(row))
-    shared["serve"] = {"params": eng.params, "prompts": prompts,
+    shared["serve"] = {"params": eng.params, "prompts": prompts, "model": c, "row": row,
                        "tokens": [done[f"r{i}"].token_ids
                                   for i in range(len(prompts))]}
     # One decode step's device work for all 8 slots (at their last
@@ -1885,6 +1912,471 @@ def phase_llm_parallel(shared: dict):
     return row
 
 
+# Phase 11 (async_llm): AsyncLLMEngine over phase 4's engine setup.
+# Pre-queued, its eight callers hand their requests over before the
+# driver thread first steps, so the eight are admitted in one go as phase
+# 4's were: the same prefill programs, so bf16 gives phase 4's tokens, not
+# a near-tie's other choice. Arriving, the callers come one every
+# _ARRIVAL_S while the driver steps the others, and the phase reads how
+# many steps each waited.
+_ASYNC_WAIT_S = 300.0
+_ARRIVAL_S = 0.05
+
+
+def phase_async_llm(shared: dict, device: str = "cuda"):
+    """Phase 11: concurrent asyncio callers, a stream, deadlines (dense
+    and paged) and a sync generate() beside the driver, on phase 4's
+    model and params."""
+    import asyncio
+
+    from ray_tpu_torch.exceptions import TaskTimeoutError
+    from ray_tpu_torch.llm import (AsyncLLMEngine, LLMConfig, LLMEngine, RequestOutput,
+                                   SamplingParams)
+
+    params, prompts, ref, model = (shared["serve"][k]
+                                   for k in ("params", "prompts", "tokens", "model"))
+    n_new = len(ref[0])
+    sp = SamplingParams(max_tokens=n_new, ignore_eos=True)
+
+    def engine(**kw):
+        return LLMEngine(LLMConfig(model=model, max_num_seqs=8, max_seq_len=1024,
+                                   tokenizer="byte", **kw), params, device=device)
+
+    eng = engine()
+    aeng = AsyncLLMEngine(eng)
+    enc = [eng.tokenizer.encode(p) for p in prompts]
+    row = {}
+
+    # The engine step at which each request had its first token and its
+    # last, as step() left them (the callers themselves see them later).
+    first_at, done_at, real_step = {}, {}, eng.step
+
+    def step():
+        outs = real_step()
+        n = eng._step_count
+        for r in [r for r in eng.slots if r is not None and r.generated] + outs:
+            first_at.setdefault(r.request_id, n)
+        done_at.update((o.request_id, n) for o in outs)
+        return outs
+
+    eng.step = step
+
+    async def caller(prompt, delay=0.0):
+        """One caller's request, streamed: its output, the seconds to its
+        first token and to its end, and the engine steps from its
+        submission to its first and its last token."""
+        if delay:
+            await asyncio.sleep(delay)
+        t_sub, s_sub = time.time(), eng._step_count
+        agen = await aeng.generate(prompt, sp, stream=True)
+        t_first = out = None
+        async for item in agen:
+            if t_first is None:
+                t_first = time.time()
+            out = item
+        return {"out": out, "t_first": t_first, "t_end": time.time(),
+                "ttft_s": t_first - t_sub,
+                "steps_to_first": first_at[out.request_id] - s_sub,
+                "steps": done_at[out.request_id] - s_sub}
+
+    def summary(got):
+        t0 = min(g["t_first"] - g["ttft_s"] for g in got)
+        t_first, t_end = min(g["t_first"] for g in got), max(g["t_end"] for g in got)
+        ttft = [g["ttft_s"] for g in got]
+        return {"callers": len(got), "tokens_each": n_new,
+                "ttft_s": ttft, "ttft_s_median": statistics.median(ttft),
+                "ttft_s_max": max(ttft),
+                "steps_to_first_token": [g["steps_to_first"] for g in got],
+                "steps_per_request": [g["steps"] for g in got],
+                "decode_tokens_per_s": sum(len(g["out"].token_ids) - 1 for g in got)
+                / max(t_end - t_first, 1e-9),
+                "wall_s": t_end - t0}
+
+    async def prequeued():
+        # Pre-queued: the callers hand their requests over while this
+        # holds the engine lock, so the driver queues all eight at one
+        # step and they decode as one batch, as phase 4's did.
+        with aeng._lock:
+            tasks = [asyncio.ensure_future(caller(t)) for t in enc]
+            await asyncio.sleep(0)  # each caller runs until it awaits its stream
+        return await asyncio.wait_for(asyncio.gather(*tasks), _ASYNC_WAIT_S)
+
+    steps0 = eng._step_count
+    got = asyncio.run(prequeued())
+    steps = eng._step_count - steps0
+    # Queued at one step, the eight take one prefill and n_new - 1 decode
+    # steps together, as in phase 4.
+    _check(steps == n_new - 1,
+           f"the pre-queued requests were not admitted together ({steps} decode "
+           f"steps for {n_new} tokens)")
+    _check_same_tokens("async callers", params, model, enc,
+                       [g["out"].token_ids for g in got], ref)
+    serve = shared["serve"].get("row", {})
+    row["prequeued"] = {**summary(got), "steps": steps, "equal_to_phase4": True,
+                        "phase4_ttft_s_median": serve.get("ttft_s_median"),
+                        "phase4_decode_tokens_per_s": serve.get("decode_tokens_per_s")}
+
+    # Callers arriving while the driver steps the others, one every
+    # _ARRIVAL_S: each is queued at the driver's next step, so it ends
+    # within n_new steps of its submission (the step under way counts).
+    async def arriving():
+        return await asyncio.wait_for(asyncio.gather(
+            *[caller(t, i * _ARRIVAL_S) for i, t in enumerate(enc)]), _ASYNC_WAIT_S)
+
+    got = asyncio.run(arriving())
+    row["arriving"] = {**summary(got), "arrival_every_s": _ARRIVAL_S,
+                       "equal_to_phase4": sum(g["out"].token_ids == r
+                                              for g, r in zip(got, ref))}
+    lengths = [len(g["out"].token_ids) for g in got]
+    _check(lengths == [n_new] * len(enc), f"arriving callers got {lengths} tokens")
+    _check(max(row["arriving"]["steps_per_request"]) <= n_new,
+           f"arriving callers waited to be admitted: "
+           f"{row['arriving']['steps_per_request']} steps for {n_new} tokens")
+
+    # One streamed request: its increments, joined, are its output.
+    async def streamed():
+        agen = await aeng.generate(enc[3], sp, stream=True)
+        return [item async for item in agen]
+
+    items = asyncio.run(asyncio.wait_for(streamed(), _ASYNC_WAIT_S))
+    final = items[-1]
+    _check(isinstance(final, RequestOutput) and items[:-1] == final.token_ids
+           and len(final.token_ids) == n_new,
+           f"the stream's increments {items[:-1]} are not its output")
+    row["stream"] = {"increments": len(items) - 1}
+
+    # Deadlines, on a paged engine: one already past (evicted before
+    # admission) and one that passes mid-decode; both raise
+    # TaskTimeoutError, and afterwards every slot and page is free.
+    peng = engine(kv_page_size=16)
+    paeng = AsyncLLMEngine(peng)
+
+    async def deadlines():
+        with_err = []
+        try:
+            await asyncio.wait_for(paeng.generate(enc[0], sp, deadline=time.time() - 1.0),
+                                   _ASYNC_WAIT_S)
+        except TaskTimeoutError as e:
+            with_err.append(e.where)
+        long_sp = SamplingParams(max_tokens=1000 - len(enc[1]), ignore_eos=True)
+        agen = await paeng.generate(enc[1], long_sp, stream=True, deadline=time.time() + 1.0)
+        got = 0
+        try:
+            async for item in agen:
+                got += isinstance(item, int)
+        except TaskTimeoutError as e:
+            with_err.append(e.where)
+        return with_err, got
+
+    wheres, streamed_before = asyncio.run(asyncio.wait_for(deadlines(), _ASYNC_WAIT_S))
+    snap = paeng.snapshot()
+    row["deadline"] = {"raised_where": wheres, "tokens_before_eviction": streamed_before,
+                       "snapshot": snap}
+    _check(wheres == ["llm_decode", "llm_decode"],
+           f"the expired requests raised {wheres}, not TaskTimeoutError twice")
+    _check(streamed_before > 0, "the mid-decode request was evicted before decoding")
+    _check(snap["evicted_deadline"] == 2 and snap["owned"] == 0 and snap["active"] == 0
+           and peng.kv_alloc.num_in_use == 0,
+           f"the evicted requests left slots or pages behind: {snap}")
+
+    # A sync generate() while async requests are in flight: both finish.
+    async def mixed():
+        pending = [asyncio.ensure_future(aeng.generate(t, sp)) for t in enc[:4]]
+        await asyncio.sleep(0.05)
+        loop = asyncio.get_running_loop()
+        sync_outs = await asyncio.wait_for(
+            loop.run_in_executor(None, eng.generate, enc[4:], sp), _ASYNC_WAIT_S)
+        return sync_outs, await asyncio.wait_for(asyncio.gather(*pending), _ASYNC_WAIT_S)
+
+    sync_outs, async_outs = asyncio.run(mixed())
+    lengths = [len(o.token_ids) for o in list(sync_outs) + list(async_outs)]
+    _check(lengths == [n_new] * 8, f"sync and async requests sharing the engine gave {lengths}")
+    row["sync_beside_async"] = {"finished": len(lengths), "snapshot": aeng.snapshot()}
+    print("[async_llm] " + json.dumps(row))
+    return row
+
+
+# Phase 12 (rllib): environments written here from gymnasium's published
+# equations (classic_control/cartpole.py and pendulum.py, the v1
+# versions, with their time limits), so that nothing needs installing.
+class _Discrete:
+    def __init__(self, n):
+        self.n = n
+
+
+class _Box:
+    def __init__(self, low, high):
+        self.low, self.high = (np.asarray(low, np.float32), np.asarray(high, np.float32))
+        self.shape = self.low.shape
+
+
+class CartPole:
+    """CartPole-v1: Euler steps of 0.02 s, +1 a step, terminated past
+    12 degrees or 2.4 m, truncated at 500 steps."""
+
+    gravity, masscart, masspole, length, force_mag, tau = 9.8, 1.0, 0.1, 0.5, 10.0, 0.02
+    theta_threshold, x_threshold, max_steps = 12 * 2 * math.pi / 360, 2.4, 500
+
+    def __init__(self):
+        self.observation_space = _Box([-4.8, -np.inf, -0.418, -np.inf],
+                                      [4.8, np.inf, 0.418, np.inf])
+        self.action_space = _Discrete(2)
+        self._rng = np.random.default_rng()
+        self.state = None
+
+    def reset(self, seed=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self.state = self._rng.uniform(-0.05, 0.05, size=(4,))
+        self.steps = 0
+        return np.asarray(self.state, np.float32), {}
+
+    def step(self, action):
+        x, x_dot, theta, theta_dot = self.state
+        total_mass = self.masspole + self.masscart
+        polemass_length = self.masspole * self.length
+        force = self.force_mag if int(action) == 1 else -self.force_mag
+        costheta, sintheta = np.cos(theta), np.sin(theta)
+        temp = (force + polemass_length * np.square(theta_dot) * sintheta) / total_mass
+        thetaacc = (self.gravity * sintheta - costheta * temp) / (
+            self.length * (4.0 / 3.0 - self.masspole * np.square(costheta) / total_mass))
+        xacc = temp - polemass_length * thetaacc * costheta / total_mass
+        x = x + self.tau * x_dot
+        x_dot = x_dot + self.tau * xacc
+        theta = theta + self.tau * theta_dot
+        theta_dot = theta_dot + self.tau * thetaacc
+        self.state = np.array((x, x_dot, theta, theta_dot), dtype=np.float64)
+        self.steps += 1
+        terminated = bool(x < -self.x_threshold or x > self.x_threshold
+                          or theta < -self.theta_threshold or theta > self.theta_threshold)
+        return (np.asarray(self.state, np.float32), 1.0, terminated,
+                self.steps >= self.max_steps, {})
+
+    def close(self):
+        pass
+
+
+class Pendulum:
+    """Pendulum-v1: torque in [-2, 2], steps of 0.05 s, reward -(angle² +
+    0.1·speed² + 0.001·torque²), truncated at 200 steps."""
+
+    max_speed, max_torque, dt, g, m, l, max_steps = 8.0, 2.0, 0.05, 10.0, 1.0, 1.0, 200
+
+    def __init__(self):
+        self.observation_space = _Box([-1.0, -1.0, -8.0], [1.0, 1.0, 8.0])
+        self.action_space = _Box([-2.0], [2.0])
+        self._rng = np.random.default_rng()
+        self.state = None
+
+    def reset(self, seed=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self.state = self._rng.uniform(low=[-math.pi, -1.0], high=[math.pi, 1.0])
+        self.steps = 0
+        return self._obs(), {}
+
+    def _obs(self):
+        th, thdot = self.state
+        return np.array([np.cos(th), np.sin(th), thdot], dtype=np.float32)
+
+    def step(self, u):
+        th, thdot = self.state
+        u = np.clip(u, -self.max_torque, self.max_torque)[0]
+        angle = ((th + np.pi) % (2 * np.pi)) - np.pi
+        costs = angle ** 2 + 0.1 * thdot ** 2 + 0.001 * (u ** 2)
+        newthdot = thdot + (3 * self.g / (2 * self.l) * np.sin(th)
+                            + 3.0 / (self.m * self.l ** 2) * u) * self.dt
+        newthdot = np.clip(newthdot, -self.max_speed, self.max_speed)
+        self.state = np.array([th + newthdot * self.dt, newthdot])
+        self.steps += 1
+        return self._obs(), -costs, False, self.steps >= self.max_steps, {}
+
+    def close(self):
+        pass
+
+
+# One learner update on the card against the same update on the CPU, from
+# the same weights and batch: f32 products in another order on the two
+# devices, so each leaf agrees to 1e-4 of its largest |value|.
+_RL_DEVICE_TOL = 1e-4
+
+
+def _timed_sampling(algo):
+    """Wrap the runner group's sampling to add up its seconds and rows."""
+    stats = {"s": 0.0, "rows": 0}
+    group = algo.env_runner_group
+    real = group.sample_batches
+
+    def sample_batches(weights=None):
+        t0 = time.perf_counter()
+        out = real(weights)
+        stats["s"] += time.perf_counter() - t0
+        stats["rows"] += sum(len(b) for b in out)
+        return out
+
+    group.sample_batches = sample_batches
+    return stats
+
+
+def _update_ms(learner, batch, n: int = 5) -> float:
+    """Median host ms of one learner update on ``batch`` (synchronised;
+    the update ends by copying its metrics to the host)."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        learner.update(batch)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _finite(metrics: dict, keys) -> bool:
+    return all(math.isfinite(metrics[k]) for k in keys)
+
+
+def phase_rllib(shared: dict, device: str = "cuda", ppo_iters: int = 5):
+    """Phase 12: RLlib's algorithms on the local runner and learner, every
+    module and learner on ``device``."""
+    import tempfile
+
+    from ray_tpu_torch.ops.tree import flatten
+    from ray_tpu_torch.rllib import (APPOConfig, BCConfig, CQLConfig, DQNConfig,
+                                     IMPALAConfig, MARWILConfig, PPOConfig, SACConfig,
+                                     SampleBatch, TorchLearner)
+    from ray_tpu_torch.rllib.algorithms.ppo import make_ppo_loss
+    from ray_tpu_torch.rllib.core.learner import make_optimizer
+
+    row = {"device": device}
+
+    # PPO at its defaults: 8 envs, 64-step fragments, batch 512, 4 epochs
+    # of 128-row minibatches, hidden (64, 64).
+    cfg = PPOConfig().environment(CartPole).learners(device=device).debugging(seed=0)
+    ppo = cfg.build()
+    sampled = _timed_sampling(ppo)
+    batches = []  # each iteration's train batch, advantages attached
+    real_update = ppo.learner_group.update_epochs
+
+    def update_epochs(batch, **kw):
+        batches.append(batch)
+        return real_update(batch, **kw)
+
+    ppo.learner_group.update_epochs = update_epochs
+    t0 = time.perf_counter()
+    results = [ppo.train() for _ in range(ppo_iters)]
+    wall = time.perf_counter() - t0
+    keys = ("total_loss", "policy_loss", "vf_loss", "entropy", "mean_kl", "grad_norm")
+    _check(all(_finite(r, keys) for r in results), f"PPO's losses are not finite: {results}")
+    row["ppo"] = {"iterations": ppo_iters, "total_loss": [r["total_loss"] for r in results],
+                  "episode_return_mean": [r.get("episode_return_mean") for r in results],
+                  "wall_s": wall, "sample_s": sampled["s"],
+                  "env_steps_per_s_sampled": sampled["rows"] / sampled["s"],
+                  "learn_s": wall - sampled["s"]}
+    batch = SampleBatch(dict(batches[-1]))
+    mb = batch.slice(0, cfg.minibatch_size)
+    row["ppo"]["learner_update_ms"] = _update_ms(ppo.learner_group.local, mb)
+
+    # One learner update on the device against the CPU, same weights, same
+    # Adam state and the same minibatch.
+    state = ppo.learner_group.get_state()
+    spec = cfg.rl_module_spec()
+    outs = {}
+    for dev in (device, "cpu"):
+        spec.device = dev
+        learner = TorchLearner(spec.build(), make_ppo_loss(cfg), make_optimizer(cfg))
+        learner.set_state(state)
+        learner.update(SampleBatch(dict(mb)))
+        outs[dev] = learner.get_weights()
+    worst = max(float(np.abs(g - c).max() / max(np.abs(c).max(), 1e-12))
+                for g, c in zip(flatten(outs[device]).values(), flatten(outs["cpu"]).values()))
+    row["ppo"]["update_vs_cpu_worst_leaf_share"] = worst
+    _check(worst <= _RL_DEVICE_TOL, f"a PPO update on {device} differs from the CPU's by "
+                                    f"{worst} of a leaf's max (limit {_RL_DEVICE_TOL})")
+
+    # A checkpoint saved and restored: the next iteration's learning on the
+    # same batch (same minibatch order) gives the same bits.
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = ppo.save(tmp)
+        restored = cfg.build()
+        restored.restore(path)
+        row["ppo"]["checkpoint_round_trip_s"] = time.perf_counter() - t0
+    nxt = []
+    for algo in (ppo, restored):
+        algo.learner_group.update_epochs(SampleBatch(dict(batch)), num_epochs=cfg.num_epochs,
+                                         minibatch_size=cfg.minibatch_size,
+                                         rng=np.random.default_rng(1))
+        nxt.append(flatten(algo.get_weights()))
+    same = all(np.array_equal(nxt[0][k], nxt[1][k]) for k in nxt[0])
+    row["ppo"]["restored_next_iteration_bitwise_equal"] = same
+    _check(same and restored.iteration == ppo.iteration,
+           "the restored PPO's next iteration differs from the original's")
+
+    # DQN and SAC, a few iterations past learning_starts (512 env steps an
+    # iteration: iterations 2-4 learn).
+    dqn = (DQNConfig().environment(CartPole).training(learning_starts=1024)
+           .learners(device=device).debugging(seed=1).build())
+    sac = (SACConfig().environment(Pendulum).training(learning_starts=1024)
+           .learners(device=device).debugging(seed=2).build())
+    for name, algo, keys in (("dqn", dqn, ("qf_loss", "qf_mean", "grad_norm")),
+                             ("sac", sac, ("critic_loss", "actor_loss", "alpha_loss",
+                                           "grad_norm"))):
+        t0 = time.perf_counter()
+        res = [algo.train() for _ in range(4)]
+        learned = [r for r in res if keys[0] in r]
+        _check(len(learned) == 3 and all(_finite(r, keys) for r in learned),
+               f"{name} did not learn with finite losses: {res}")
+        mb = algo.buffer.sample(algo.algo_config.train_batch_size)
+        mb["td_targets"] = np.zeros(len(mb), np.float32)
+        if name == "sac":
+            mb["noise_pi"] = np.zeros((len(mb), algo.algo_config.action_dim), np.float32)
+        row[name] = {"iterations": 4, "learning_iterations": len(learned),
+                     "env_steps": res[-1]["num_env_steps_sampled"],
+                     "losses": [{k: r[k] for k in keys} for r in learned],
+                     "wall_s": time.perf_counter() - t0,
+                     "learner_update_ms": _update_ms(algo.learner_group.local, mb)}
+
+    # BC and MARWIL on the PPO phase's batches, rows ordered by env and
+    # time with each fragment's end marked truncated (MARWIL's returns run
+    # along rows); CQL on SAC's transitions (its actions are continuous).
+    frags = []
+    for b in batches:
+        order = np.lexsort((b["t"], b["env_id"]))
+        frag = {k: b[k][order] for k in ("obs", "actions", "rewards", "terminateds",
+                                         "truncateds")}
+        frag["truncateds"] = frag["truncateds"] | (b["t"][order] == b["t"].max())
+        frags.append(frag)
+    offline = {k: np.concatenate([f[k] for f in frags]) for k in frags[0]}
+    sac_data = dict(sac.buffer.sample(2048))
+    for name, c, keys in (
+            ("bc", BCConfig().offline(dict(offline)), ("bc_loss",)),
+            ("marwil", MARWILConfig().offline(dict(offline)), ("policy_loss", "vf_loss")),
+            ("cql", CQLConfig().offline(sac_data).training(
+                bc_iters=16, action_low=np.array([-2.0], np.float32),
+                action_high=np.array([2.0], np.float32)),
+             ("critic_loss", "cql_penalty", "actor_loss"))):
+        space = (dict(observation_dim=3, action_dim=1) if name == "cql"
+                 else dict(observation_dim=4, action_dim=2))
+        algo = c.environment(**space).learners(device=device).debugging(seed=3).build()
+        t0 = time.perf_counter()
+        res = [algo.train() for _ in range(3)]
+        _check(all(_finite(r, keys) for r in res), f"{name}'s losses are not finite: {res}")
+        row[name] = {"iterations": 3, "rows": len(algo._dataset),
+                     "losses": [{k: r[k] for k in keys} for r in res],
+                     "wall_s": time.perf_counter() - t0}
+
+    # IMPALA and APPO: a learner update on one batch of their local runner.
+    for name, c in (("impala", IMPALAConfig()), ("appo", APPOConfig())):
+        algo = (c.environment(CartPole).env_runners(num_env_runners=0)
+                .learners(device=device).debugging(seed=4).build())
+        b = algo.env_runner_group.sample(algo.get_weights())
+        res = algo.learner_group.local.update(b)
+        _check(_finite(res, ("total_loss", "policy_loss", "vf_loss", "grad_norm")),
+               f"{name}'s losses are not finite: {res}")
+        row[name] = {"batch_rows": len(b), "losses": res,
+                     "learner_update_ms": _update_ms(algo.learner_group.local, b)}
+    print("[rllib] " + json.dumps(row))
+    return row
+
+
 # The main path's kernels as the kernels line names them: (the wrapper in
 # ray_tpu_torch.ops._kernels that launches it, whether it is the fp32
 # kernel, the source under ray_tpu_torch/csrc that holds it, the line of
@@ -1969,7 +2461,9 @@ def main() -> int:
              ("parallel", lambda: phase_parallel(shared), True),
              ("llm", inference(lambda: phase_llm(shared)), False),
              ("train_backend", lambda: phase_train_backend(shared), True),
-             ("llm_parallel", lambda: phase_llm_parallel(shared), False))
+             ("llm_parallel", lambda: phase_llm_parallel(shared), False),
+             ("async_llm", lambda: phase_async_llm(shared), False),
+             ("rllib", lambda: phase_rllib(shared), False))
     launches = dict.fromkeys(_KERNELS, 0)
     for name, run, must_launch in paths:
         for w in wrappers:

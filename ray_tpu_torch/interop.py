@@ -23,7 +23,10 @@ def _leaf(a, device) -> torch.Tensor:
 
 
 def params_from_jax(tree, device="cuda"):
-    """Nested dict of numpy arrays -> the same nested dict of tensors."""
+    """Nested dicts, lists and tuples of numpy arrays -> the same tree of
+    tensors (RLlib's trees hold lists of layers)."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_jax(v, device) for v in tree)
     return _leaf(tree, device)

@@ -29,9 +29,15 @@ rank's part (model_runner.TensorParallel, pp_runner.PPRunner) and the
 scheduler stays the same. They take and refuse what ray_tpu's take and
 refuse, with its errors.
 
-Not here: disaggregated prefill/decode, AsyncLLMEngine and the engine's
-trace spans wait for the runtime (ROADMAP.md §1 item 6); orbax checkpoint
-directories raise (the port reads .npz only; ROADMAP.md §3).
+``AsyncLLMEngine`` drives an engine from a background thread: concurrent
+callers' requests join one running batch, with streams and deadlines.
+Callers hand their requests over through a queue that the thread drains
+before each step, not through the engine lock, which the thread takes
+step after step.
+
+Not here: disaggregated prefill/decode and the engine's trace spans wait
+for the runtime (ROADMAP.md §1 item 6); orbax checkpoint directories
+raise (the port reads .npz only; ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import os
+import queue
 import threading
 import time
 from typing import Any, Iterable
@@ -46,6 +53,7 @@ from typing import Any, Iterable
 import numpy as np
 import torch
 
+from ray_tpu_torch.exceptions import TaskTimeoutError
 from ray_tpu_torch.interop import params_from_jax
 from ray_tpu_torch.llm import kv_pages, model_runner
 from ray_tpu_torch.llm.config import LLMConfig, SamplingParams
@@ -287,6 +295,10 @@ class LLMEngine:
         # generate()/step() mutate slot state and the cache in place;
         # concurrent callers are serialized.
         self._lock = threading.Lock()
+        # Where generate() hands the outputs of requests it did not add
+        # (an AsyncLLMEngine's, sharing the batch); None drops nothing
+        # because then there are no such requests.
+        self._foreign_output_listener = None
         # Lazy per-tokenizer JSON token masker (guided decoding).
         self._json_masker = None
         # Multi-LoRA pool: per-slot adapter index 0 = null adapter.
@@ -373,6 +385,14 @@ class LLMEngine:
         """Queue one request. ``model="<model_id>:<adapter>"`` selects a
         LoRA adapter (the OpenAI surface's model suffix) on an engine
         that serves adapters, as ``sampling_params.extra["lora"]`` does."""
+        self.waiting.append(self._new_request(request_id, prompt, sampling_params,
+                                              model=model))
+
+    def _new_request(self, request_id: str, prompt: str | list[int],
+                     sampling_params: SamplingParams | None = None, *,
+                     model: "str | None" = None) -> Request:
+        """add_request's checks and Request, not queued. It touches no
+        state that step() changes, so it may run without the lock."""
         sp = sampling_params or self.config.sampling_defaults
         if (isinstance(model, str) and ":" in model
                 and self.lora_mgr is not None):
@@ -414,7 +434,7 @@ class LLMEngine:
         if sp.response_format is not None:
             req.guided = self._make_guided(sp.response_format)
         req.t_add = time.time()
-        self.waiting.append(req)
+        return req
 
     def has_unfinished(self) -> bool:
         return bool(self.waiting) or any(s is not None for s in self.slots)
@@ -1309,20 +1329,291 @@ class LLMEngine:
                 self.add_request(rid, toks, sp)
             mine = set(order)
             done: dict[str, RequestOutput] = {}
+            # Step until THIS call's requests finish. Other requests (an
+            # AsyncLLMEngine's) may share the batch; their outputs go to
+            # the registered listener, never dropped.
             while len(done) < len(mine) and self.has_unfinished():
                 for out in self.step():
                     if out.request_id in mine:
                         done[out.request_id] = out
+                    elif self._foreign_output_listener is not None:
+                        self._foreign_output_listener(out)
             return [done[rid] for rid in order]
 
 
-class AsyncLLMEngine:
-    """ray_tpu's async request-level front end (a background stepping
-    thread, per-request futures, streaming and deadlines) serves through
-    the runtime core, which the port does not have yet."""
+_NOTHING_YET = object()
+_STREAM_POLL_S = 0.25
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"AsyncLLMEngine {_RUNTIME}")
+
+def _next_item(q: queue.SimpleQueue):
+    """A stream's next item, or _NOTHING_YET after _STREAM_POLL_S: the
+    executor thread that waits here is never parked for long, so a
+    cancelled stream leaves no thread for ``asyncio.run`` to wait on."""
+    try:
+        return q.get(timeout=_STREAM_POLL_S)
+    except queue.Empty:
+        return _NOTHING_YET
+
+
+class AsyncLLMEngine:
+    """Async request-level driver over LLMEngine (port of ray_tpu's). One
+    background thread drives ``engine.step()``; callers submit requests
+    and await per-request futures, so requests from concurrent callers
+    join the same running batch instead of serializing whole batches
+    behind the engine lock as the sync ``generate()`` does.
+
+    ``generate(..., stream=True)`` returns an async iterator of token ids
+    as the slot advances, then the final RequestOutput.
+    ``generate(..., deadline=...)`` (wall-clock seconds) makes each step
+    evict the request once its deadline passed, waiting or mid-decode,
+    with a ``TaskTimeoutError``; its slot and KV pages are freed.
+    ``snapshot()`` reports the token-level batch view.
+
+    The stepping thread runs under ``torch.no_grad()`` and on the
+    engine's CUDA device: both are per thread in torch. (no_grad, not
+    inference_mode: tensors the engine keeps are updated in place by a
+    sync ``generate()`` outside either.)
+
+    Admission differs from ray_tpu's, which queues each request under the
+    engine lock from the caller: a lock is not handed to the thread that
+    waits longest, and the stepping thread, taking it again step after
+    step, kept callers out for dozens of steps. Here a caller checks its
+    request (``LLMEngine._new_request``) and puts it in ``_inbox``; the
+    stepping thread queues the inbox at the top of every step.
+    """
+
+    def __init__(self, engine: LLMEngine):
+        self.engine = engine
+        # The engine's own lock: sync generate() and this driver never
+        # interleave engine state mutations.
+        self._lock = engine._lock
+        self._waiters: dict[str, Any] = {}          # rid -> concurrent Future
+        self._streams: dict[str, queue.SimpleQueue] = {}
+        self._seen: dict[str, int] = {}             # rid -> tokens streamed
+        self._deadlines: dict[str, float] = {}      # rid -> wall-clock s
+        # (Request, Future or stream queue, deadline) from the callers
+        self._inbox: queue.SimpleQueue = queue.SimpleQueue()
+        self._evicted_deadline = 0
+        self._wake = threading.Event()
+        # A sync engine.generate() called while we have requests in flight
+        # delivers our outputs here.
+        engine._foreign_output_listener = self._deliver
+        # The card the engine's tensors are on ("cuda" alone means the
+        # creating thread's current card), for the stepping thread.
+        self._cuda_index = None
+        if engine.device.type == "cuda":
+            self._cuda_index = (engine.device.index if engine.device.index is not None
+                                else torch.cuda.current_device())
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name="llm-engine-loop")
+        self._thread.start()
+
+    def _loop(self) -> None:
+        if self._cuda_index is not None:
+            torch.cuda.set_device(self._cuda_index)
+        with torch.no_grad():
+            while True:
+                self._wake.wait()
+                while True:
+                    with self._lock:
+                        self._admit_inbox()
+                        # Drive only while async-owned requests are
+                        # pending: foreign (sync generate()) requests are
+                        # stepped by their own caller, and spinning on
+                        # them would busy-loop if step() kept raising.
+                        if (not (self._waiters or self._streams)
+                                or not self.engine.has_unfinished()):
+                            # Clear, then look again: a request put in
+                            # since _admit_inbox set the event before it.
+                            self._wake.clear()
+                            if self._inbox.empty():
+                                break
+                            continue
+                        try:
+                            self._evict_expired()
+                            outs = self.engine.step()
+                            self._push_stream_tokens()
+                        except Exception as e:  # noqa: BLE001
+                            # A dead driver thread would hang every pending
+                            # and future request: fail them and go on.
+                            self._fail_all(e)
+                            continue
+                    for out in outs:
+                        self._deliver(out)
+
+    def _submit(self, req: Request, sink, deadline: "float | None") -> None:
+        """Hand ``req`` to the stepping thread; ``sink`` is its Future or
+        its stream's queue."""
+        self._inbox.put((req, sink, deadline))
+        self._wake.set()
+
+    def _admit_inbox(self) -> None:
+        """lock held. Register and queue every request the callers have
+        handed over."""
+        while True:
+            try:
+                req, sink, deadline = self._inbox.get_nowait()
+            except queue.Empty:
+                return
+            rid = req.request_id
+            if isinstance(sink, queue.SimpleQueue):
+                self._streams[rid] = sink
+                self._seen[rid] = 0
+            else:
+                self._waiters[rid] = sink
+            if deadline is not None:
+                self._deadlines[rid] = deadline
+            self.engine.waiting.append(req)
+
+    def _deliver(self, out: RequestOutput) -> None:
+        """Resolve the waiter or stream of one finished request (from the
+        driver loop, and from a sync generate() sharing the batch)."""
+        q = self._streams.pop(out.request_id, None)
+        if q is not None:
+            # The finishing step's tokens never reach _push_stream_tokens
+            # (step() clears the slot): emit the unseen tail first.
+            n = self._seen.get(out.request_id, 0)
+            for tok in out.token_ids[n:]:
+                q.put(int(tok))
+            q.put(out)  # terminal: the RequestOutput itself
+        self._seen.pop(out.request_id, None)
+        self._deadlines.pop(out.request_id, None)
+        fut = self._waiters.pop(out.request_id, None)
+        if fut is not None and not fut.done():
+            fut.set_result(out)
+
+    def _drop(self, rids: set) -> None:
+        """lock held. Remove ``rids`` from the engine's queue and slots,
+        each slot through _release_slot so that its KV pages are freed."""
+        self.engine.waiting = collections.deque(
+            r for r in self.engine.waiting if r.request_id not in rids)
+        for i, r in enumerate(self.engine.slots):
+            if r is not None and r.request_id in rids:
+                self.engine._release_slot(i)
+
+    def _evict_expired(self) -> None:
+        """lock held. Fail owned requests whose deadline passed with a
+        TaskTimeoutError and remove them from the engine."""
+        if not self._deadlines:
+            return
+        now = time.time()
+        expired = [rid for rid, dl in self._deadlines.items() if now > dl]
+        if not expired:
+            return
+        for rid in expired:
+            self._deadlines.pop(rid, None)
+            exc = TaskTimeoutError(
+                "TaskTimeoutError: request exceeded its deadline during "
+                "LLM decode (evicted from the running batch)",
+                where="llm_decode")
+            fut = self._waiters.pop(rid, None)
+            if fut is not None and not fut.done():
+                fut.set_exception(exc)
+            q = self._streams.pop(rid, None)
+            if q is not None:
+                q.put(exc)
+            self._seen.pop(rid, None)
+            self._evicted_deadline += 1
+        self._drop(set(expired))
+
+    def snapshot(self) -> dict:
+        """Token-level batch view for replica telemetry."""
+        with self._lock:
+            self._admit_inbox()
+            return {
+                "waiting": len(self.engine.waiting),
+                "active": sum(1 for s in self.engine.slots if s is not None),
+                "slots": len(self.engine.slots),
+                "owned": len(self._waiters) + len(self._streams),
+                "evicted_deadline": self._evicted_deadline,
+                "kv": self.engine.kv_stats(),
+            }
+
+    def _fail_all(self, exc: Exception) -> None:
+        """lock held. Resolve every async-owned pending request with the
+        failure and remove only those from the engine: requests of a
+        concurrent sync generate() stay, or its loop would end early and
+        miss its own request ids."""
+        owned = set(self._waiters) | set(self._streams)
+        for fut in self._waiters.values():
+            if not fut.done():
+                fut.set_exception(exc)
+        self._waiters.clear()
+        for q in self._streams.values():
+            q.put(exc)  # the stream's iterator raises it
+        self._streams.clear()
+        self._seen.clear()
+        for rid in owned:
+            self._deadlines.pop(rid, None)
+        self._drop(owned)
+
+    def _push_stream_tokens(self) -> None:
+        """lock held. Emit the tokens generated since the last step to the
+        stream queues."""
+        if not self._streams:
+            return
+        for slot_req in self.engine.slots:
+            if slot_req is None:
+                continue
+            q = self._streams.get(slot_req.request_id)
+            if q is None:
+                continue
+            n = self._seen.get(slot_req.request_id, 0)
+            for tok in slot_req.generated[n:]:
+                q.put(int(tok))
+            self._seen[slot_req.request_id] = len(slot_req.generated)
+
+    async def generate(self, prompt: "str | list[int]",
+                       sampling_params: SamplingParams | None = None,
+                       stream: bool = False,
+                       deadline: "float | None" = None):
+        """Awaitable single-request generation; with stream=True an async
+        iterator yielding token ids, then the final RequestOutput.
+        ``deadline`` (wall-clock seconds) makes the decode loop evict this
+        request once expired."""
+        import asyncio
+        import concurrent.futures
+        import uuid
+
+        loop = asyncio.get_running_loop()
+        rid = f"areq-{uuid.uuid4().hex[:12]}"
+        # Tokenize off the event loop (the only slow work before admission).
+        if isinstance(prompt, str):
+            toks = await loop.run_in_executor(None, self.engine.tokenizer.encode, prompt)
+        else:
+            toks = list(prompt)
+        # Checked here, so that a bad request raises in its caller.
+        req = self.engine._new_request(rid, toks, sampling_params)
+        if stream:
+            q: queue.SimpleQueue = queue.SimpleQueue()
+            self._submit(req, q, deadline)
+
+            async def aiter():
+                while True:
+                    item = await loop.run_in_executor(None, _next_item, q)
+                    if item is _NOTHING_YET:
+                        continue
+                    if isinstance(item, Exception):
+                        raise item
+                    yield item
+                    if isinstance(item, RequestOutput):
+                        return
+
+            return aiter()
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        self._submit(req, fut, deadline)
+        return await asyncio.wrap_future(fut)
+
+    async def generate_from_handoff(self, handoff: dict,
+                                    sampling_params: SamplingParams | None = None,
+                                    deadline: "float | None" = None):
+        """The continuation of a disaggregated prefill's handoff record:
+        it needs the engine's ``add_handoff_request``, which waits for
+        ROADMAP.md §1 item 6c."""
+        raise NotImplementedError(
+            "generate_from_handoff needs LLMEngine.add_handoff_request "
+            "(disaggregated prefill/decode), which waits for the runtime core "
+            "(ROADMAP.md §1 item 6c)")
 
 
 def _load_checkpoint(path: str, device):

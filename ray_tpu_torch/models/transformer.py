@@ -146,8 +146,10 @@ class TransformerConfig:
         return sum(math.prod(s) for s in tree_leaves(self.shapes()))
 
     def shapes(self):
-        """Nested dict of parameter shapes, mirroring the param tree."""
-        return tree_map(lambda spec: spec[0], _param_specs(self))
+        """Nested dict of parameter shapes (torch.Size leaves), mirroring
+        the param tree."""
+        return tree_map(lambda spec: torch.Size(spec[0]), _param_specs(self),
+                        is_leaf=_tuple_leaf)
 
 
 # -- presets ----------------------------------------------------------------
@@ -250,6 +252,11 @@ def tiny(**kw) -> TransformerConfig:
 
 # -- parameter tree -----------------------------------------------------------
 
+def _tuple_leaf(x) -> bool:
+    """The leaves of ``_param_specs``' tree: (shape, init) pairs."""
+    return type(x) is tuple
+
+
 def _param_specs(c: TransformerConfig):
     """The parameter tree as (shape, init) leaves; init is "normal"
     (N(0, 0.02)), "residual" (N(0, 0.02/sqrt(2L)), residual-out
@@ -329,7 +336,7 @@ def init_params(rng: torch.Generator, config: TransformerConfig, *,
                         device=rng.device) * stds[init]
         return w.to(device=device, dtype=pdt)
 
-    return tree_map(make, _param_specs(c))
+    return tree_map(make, _param_specs(c), is_leaf=_tuple_leaf)
 
 
 # -- partitioning -----------------------------------------------------------
@@ -402,9 +409,8 @@ def _unstack_layers(layers):
     split by one ``unbind``: under autograd its backward stacks the
     per-layer gradients once, where indexing ``a[i]`` per layer would
     build a full-size zero gradient of the leaf for every layer."""
-    split = tree_map(lambda a: a.unbind(0), layers)
-    n = len(next(tree_leaves(split)))
-    return [tree_map(lambda t, i=i: t[i], split) for i in range(n)]
+    split = [a.unbind(0) for a in tree_leaves(layers)]
+    return [tree_unflatten(layers, [s[i] for s in split]) for i in range(len(split[0]))]
 
 
 # -- forward ----------------------------------------------------------------

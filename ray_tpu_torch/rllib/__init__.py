@@ -1,0 +1,76 @@
+"""ray_tpu_torch.rllib: reinforcement learning (port of ray_tpu.rllib, on
+a local env runner and a local learner).
+
+The env runner steps vectorized envs on the host with one batched policy
+forward on the module's device per vector step; the learner runs its
+update (autograd, then the optax-style optimizer, in place) on that
+device. Algorithms are Trainables (``ray_tpu_torch.tune``): PPO, DQN, SAC,
+BC, MARWIL and CQL train end to end; IMPALA and APPO bring their V-trace
+losses and learners, whose asynchronous training step needs remote env
+runners. Remote env runners and learners (ROADMAP.md §1 item 7, part 2),
+multi-agent RL and DreamerV3 (the next RLlib slice) are not here."""
+
+from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig
+from ray_tpu_torch.rllib.algorithms.appo import APPO, APPOConfig
+from ray_tpu_torch.rllib.algorithms.bc import BC, BCConfig
+from ray_tpu_torch.rllib.algorithms.cql import CQL, CQLConfig
+from ray_tpu_torch.rllib.algorithms.dqn import DQN, DQNConfig
+from ray_tpu_torch.rllib.algorithms.impala import IMPALA, IMPALAConfig, vtrace
+from ray_tpu_torch.rllib.algorithms.marwil import MARWIL, MARWILConfig
+from ray_tpu_torch.rllib.algorithms.ppo import PPO, PPOConfig
+from ray_tpu_torch.rllib.algorithms.sac import SAC, SACConfig
+from ray_tpu_torch.rllib.connectors import (
+    ClipRewards,
+    ConnectorPipelineV2,
+    ConnectorV2,
+    FlattenObservations,
+    LambdaConnector,
+    NormalizeObservations,
+)
+from ray_tpu_torch.rllib.core.learner import LearnerGroup, TorchLearner
+from ray_tpu_torch.rllib.core.rl_module import (
+    DiscreteActorCriticModule,
+    RLModule,
+    RLModuleSpec,
+)
+from ray_tpu_torch.rllib.env.env_runner import EnvRunnerGroup, SingleAgentEnvRunner
+from ray_tpu_torch.rllib.replay_buffer import ReplayBuffer
+from ray_tpu_torch.rllib.sample_batch import SampleBatch, compute_gae
+
+__all__ = [
+    "APPO",
+    "APPOConfig",
+    "Algorithm",
+    "AlgorithmConfig",
+    "BC",
+    "BCConfig",
+    "CQL",
+    "CQLConfig",
+    "DQN",
+    "DQNConfig",
+    "MARWIL",
+    "MARWILConfig",
+    "ReplayBuffer",
+    "SAC",
+    "SACConfig",
+    "ClipRewards",
+    "ConnectorPipelineV2",
+    "ConnectorV2",
+    "FlattenObservations",
+    "LambdaConnector",
+    "NormalizeObservations",
+    "DiscreteActorCriticModule",
+    "EnvRunnerGroup",
+    "IMPALA",
+    "IMPALAConfig",
+    "TorchLearner",
+    "LearnerGroup",
+    "PPO",
+    "PPOConfig",
+    "RLModule",
+    "RLModuleSpec",
+    "SampleBatch",
+    "SingleAgentEnvRunner",
+    "compute_gae",
+    "vtrace",
+]

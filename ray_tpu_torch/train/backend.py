@@ -9,7 +9,9 @@ inside compiled programs. Under torch both are one thing, the default
 on the CPU. ``TorchBackend.on_worker_setup`` initialises it, with an
 explicit timeout, so a rank that waits on a collective its peers never
 join fails instead of hanging; ``ray_tpu_torch.parallel`` builds its
-meshes over it and ``torch_utils`` syncs over it.
+meshes over it and ``torch_utils`` syncs over it. It registers that group
+under the run's group name (``get_group``), the name ray_tpu's sync
+helpers take as ``group_name``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,19 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
+
+# Process groups by the name on_worker_setup was given (ray_tpu keeps its
+# host collective groups by name the same way, util/collective.py).
+_groups: dict = {}
+
+
+def get_group(name: str):
+    """The process group registered under ``name``."""
+    if name not in _groups:
+        raise ValueError(f"no process group named {name!r}: TorchBackend."
+                         f"on_worker_setup registers the run's group under its "
+                         f"group_name (registered: {sorted(_groups)})")
+    return _groups[name]
 
 
 @dataclasses.dataclass
@@ -101,3 +116,5 @@ class TorchBackend(Backend):
                 "nccl" if config.device == "cuda" else "gloo",
                 init_method=config.init_method(), rank=rank, world_size=world_size,
                 timeout=datetime.timedelta(seconds=config.timeout_s))
+        if dist.is_initialized():
+            _groups[group_name] = dist.group.WORLD

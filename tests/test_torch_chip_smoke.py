@@ -461,3 +461,68 @@ def test_pipeline_failure_must_come_from_the_stage_hop(errors, transport):
     """Phase 10 accepts a pipeline rank's failure only where the stage
     hop's transport raised or ended or stalled a rank."""
     assert chip_smoke._transport_failures(errors) == transport
+
+
+@pytest.mark.parametrize("name", ["CartPole", "Pendulum"])
+def test_rllib_phase_envs_step_as_gymnasium(name):
+    """Phase 12's environments, written from gymnasium's equations, give
+    gymnasium's CartPole-v1 and Pendulum-v1 observations, rewards,
+    terminations and truncations for the same seeds and actions, over
+    several episodes (resets without a seed continue the first's
+    generator, as gymnasium's do)."""
+    import gymnasium
+    import numpy as np
+
+    ours, theirs = getattr(chip_smoke, name)(), gymnasium.make(f"{name}-v1")
+    rng = np.random.default_rng(0)
+    for episode in range(3):
+        seed = 5 if episode == 0 else None
+        a, b = ours.reset(seed=seed)[0], theirs.reset(seed=seed)[0]
+        assert a.dtype == b.dtype == np.float32 and np.array_equal(a, b)
+        for _ in range(600):
+            act = (int(rng.integers(0, 2)) if name == "CartPole"
+                   else rng.uniform(-2.5, 2.5, (1,)).astype(np.float32))
+            o1, r1, t1, u1, _ = ours.step(act)
+            o2, r2, t2, u2, _ = theirs.step(act)
+            assert np.array_equal(o1, o2) and r1 == r2 and (t1, u1) == (t2, u2)
+            if t1 or u1:
+                break
+    assert ours.observation_space.shape == theirs.observation_space.shape
+    if name == "CartPole":
+        assert ours.action_space.n == theirs.action_space.n
+    else:
+        assert np.array_equal(ours.action_space.low, theirs.action_space.low)
+
+
+def test_rllib_phase_runs_on_the_cpu(capsys):
+    """Phase 12 end to end with every module on the CPU (2 PPO
+    iterations): its checks pass and it prints its row."""
+    row = chip_smoke.phase_rllib({}, device="cpu", ppo_iters=2)
+    assert row["ppo"]["restored_next_iteration_bitwise_equal"]
+    assert row["dqn"]["learning_iterations"] == row["sac"]["learning_iterations"] == 3
+    assert set(row) >= {"ppo", "dqn", "sac", "bc", "marwil", "cql", "impala", "appo"}
+    assert "[rllib] " in capsys.readouterr().out
+
+
+def test_async_phase_runs_on_the_cpu(capsys):
+    """Phase 11 end to end on the CPU on a tiny model standing in for
+    phase 4's (its tokens from the sync engine as phase 4 makes them)."""
+    import dataclasses
+
+    from ray_tpu_torch import models
+    from ray_tpu_torch.llm import LLMConfig, LLMEngine, SamplingParams
+
+    cfg = dataclasses.replace(models.tiny(vocab_size=512, max_seq_len=1024), dtype="float32")
+    params = models.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    eng = LLMEngine(LLMConfig(model=cfg, max_num_seqs=8, max_seq_len=1024, tokenizer="byte"),
+                    params, device="cpu")
+    words = "the engine answers every request with thirty two tokens "
+    prompts = [(words * 5)[:n] for n in (11, 24, 30, 50, 60, 100, 200, 240)]
+    outs = eng.generate(prompts, SamplingParams(max_tokens=32, ignore_eos=True))
+    shared = {"serve": {"params": params, "prompts": prompts, "model": cfg, "row": {},
+                        "tokens": [o.token_ids for o in outs]}}
+    row = chip_smoke.phase_async_llm(shared, device="cpu")
+    assert row["prequeued"]["steps"] == 31  # one admission, then 31 decode steps
+    assert max(row["arriving"]["steps_per_request"]) <= 32
+    assert row["deadline"]["raised_where"] == ["llm_decode"] * 2
+    assert "[async_llm] " in capsys.readouterr().out

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from ray_tpu_torch import interop, models, parallel, train
+from ray_tpu_torch import interop, models, parallel, rllib, train
 from ray_tpu_torch.llm import LLMConfig, LLMEngine, kv_pages, lora, model_runner
 from ray_tpu_torch.ops import layers
 from ray_tpu_torch.ops.optim import FusedClipAdamW
@@ -31,7 +31,18 @@ missing = sorted({"ray_tpu_torch.ops.moe", "ray_tpu_torch.ops.optim",
                   "ray_tpu_torch.llm.pp_runner", "ray_tpu_torch.train",
                   "ray_tpu_torch.train.backend", "ray_tpu_torch.train.checkpoint",
                   "ray_tpu_torch.train.config", "ray_tpu_torch.train.session",
-                  "ray_tpu_torch.train.torch_utils"}
+                  "ray_tpu_torch.train.torch_utils", "ray_tpu_torch.exceptions",
+                  "ray_tpu_torch.tune", "ray_tpu_torch.tune.trainable",
+                  "ray_tpu_torch.rllib", "ray_tpu_torch.rllib.sample_batch",
+                  "ray_tpu_torch.rllib.replay_buffer", "ray_tpu_torch.rllib.connectors",
+                  "ray_tpu_torch.rllib.core.rl_module", "ray_tpu_torch.rllib.core.learner",
+                  "ray_tpu_torch.rllib.env.env_runner",
+                  "ray_tpu_torch.rllib.algorithms.algorithm",
+                  "ray_tpu_torch.rllib.algorithms.ppo", "ray_tpu_torch.rllib.algorithms.dqn",
+                  "ray_tpu_torch.rllib.algorithms.sac", "ray_tpu_torch.rllib.algorithms.bc",
+                  "ray_tpu_torch.rllib.algorithms.marwil", "ray_tpu_torch.rllib.algorithms.cql",
+                  "ray_tpu_torch.rllib.algorithms.impala",
+                  "ray_tpu_torch.rllib.algorithms.appo"}
                  - set(sys.modules))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "ray_tpu"
@@ -46,10 +57,10 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, missing, bad = out.stdout.split(" ", 2)
-    assert int(n_modules) >= 34
+    assert int(n_modules) >= 56
     assert missing == "[]"  # the MoE ops, the optimizers, the parallel slice,
-    # the LLM plane's paged KV, LoRA, guided and pipeline modules and the
-    # Train backend were imported
+    # the LLM plane's paged KV, LoRA, guided and pipeline modules, the
+    # Train backend, RLlib, Tune's Trainable and the exceptions were imported
     assert bad.strip() == "[]"
 
 
@@ -68,6 +79,10 @@ ENTRY_POINTS = {
     "TorchBackend.on_worker_setup": lambda: train.TorchBackend().on_worker_setup(
         0, 1, "g", train.TorchConfig(distributed="on")),
     "load_pytree": lambda: _load_saved_tree(),
+    "RLModuleSpec.build": lambda: rllib.RLModuleSpec(4, 2).build(),
+    "BCConfig.build": lambda: rllib.BCConfig().offline(
+        {"obs": np.zeros((4, 4), np.float32), "actions": np.zeros(4, np.int64)}
+    ).environment(observation_dim=4, action_dim=2).build(),
 }
 
 

@@ -47,6 +47,21 @@ LEAVES = {"w": ((6, 5), "float32"), "b": ((5,), "float32"),
           "head": {"w": ((4, 8), "bfloat16"), "scale": ((), "float32")}}
 
 
+# A tree whose leaves sit at byte offsets 0, 6 and 14: the f32 and int64
+# leaves are not at a multiple of their size in the packed buffer.
+MIXED = {"a": ((3,), "bfloat16"), "b": ((2,), "float32"), "c": ((), "int64")}
+
+
+def _mixed_per_rank(seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(WORLD):
+        a = torch.from_numpy(rng.standard_normal(3).astype(np.float32)).bfloat16().float()
+        out.append({"a": a.numpy(), "b": rng.standard_normal(2).astype(np.float32),
+                    "c": np.asarray(rng.integers(-2**62, 2**62), np.int64)})
+    return out, {k: v[1] for k, v in MIXED.items()}
+
+
 def _per_rank(seed):
     """Each rank's tree of numpy float32 arrays (bf16 leaves hold bf16
     values exactly) and the dtype of each leaf."""
@@ -133,10 +148,13 @@ def _ckpt_leaves():
 def ranks(tmp_path_factory):
     grads, gtypes = _per_rank(0)
     params, ptypes = _per_rank(1)
+    mixed, mtypes = _mixed_per_rank(2)
     leaves = _ckpt_leaves()
     path = str(tmp_path_factory.mktemp("dtensor_ckpt") / "state")
     run_cases = {
         "sync": ("sync", dict(per_rank=params, dtypes=ptypes)),
+        "sync_mixed": ("sync", dict(per_rank=mixed, dtypes=mtypes)),
+        "named": ("named_group", dict(per_rank=grads, dtypes=gtypes)),
         "mean": ("allreduce", dict(per_rank=grads, dtypes=gtypes, op="mean")),
         "sum": ("allreduce", dict(per_rank=grads, dtypes=gtypes, op="sum")),
         "ckpt": ("checkpoint", dict(path=path, leaves=leaves,
@@ -147,7 +165,8 @@ def ranks(tmp_path_factory):
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         future = pool.submit(_spawn.run, cases.run, WORLD, run_cases, timeout=180)
         yield types.SimpleNamespace(result=future.result, grads=(grads, gtypes),
-                                    params=(params, ptypes), leaves=leaves)
+                                    params=(params, ptypes), mixed=(mixed, mtypes),
+                                    leaves=leaves)
 
 
 def _as_float(a):
@@ -195,6 +214,50 @@ def test_sync_model_params_matches_jax(ranks, monkeypatch):
                 assert np.array_equal(got[key], w.view(np.int16))
             else:
                 assert got[key].dtype == w.dtype and np.array_equal(got[key], w)
+
+
+def test_sync_model_params_keeps_mixed_dtypes(ranks, monkeypatch):
+    """An odd-length bf16 leaf, then f32, then an int64 scalar: every rank
+    gets rank 0's leaves bit for bit in their own dtypes, the values
+    ray_tpu's sync_model_params gives (its int64 becomes int32 without
+    jax's x64 mode, so values are compared there)."""
+    mixed, dtypes = ranks.mixed
+    rank0 = mixed[0]
+    jrank0 = [np.asarray(rank0[k]).astype(dtypes[k] if dtypes[k] != "bfloat16"
+                                          else jnp.bfloat16) for k in sorted(rank0)]
+    for rank, got in enumerate(r["sync_mixed"] for r in ranks.result()):
+        assert got["a"].dtype == np.int16 and got["b"].dtype == np.float32
+        assert got["c"].dtype == np.int64 and got["c"].shape == ()
+        assert np.array_equal(got["a"], torch.from_numpy(rank0["a"]).bfloat16()
+                              .view(torch.int16).numpy())
+        assert np.array_equal(got["b"].view(np.int32), rank0["b"].view(np.int32))
+        assert got["c"] == rank0["c"]
+        want = _in_jax_session(rank, lambda name: jax_utils.sync_model_params(
+            _jax_tree(mixed[rank], dtypes), group_name=name), _Group([], jrank0), monkeypatch)
+        assert np.array_equal(_as_float(got["a"]), np.asarray(want["a"], np.float64))
+        assert np.array_equal(got["b"], np.asarray(want["b"]))
+        jc = np.asarray(want["c"])
+        assert got["c"].astype(jc.dtype) == jc  # the port's int64, cut to JAX's int32
+
+
+def test_sync_helpers_take_the_reference_group_name(ranks):
+    """sync_model_params, allreduce_gradients and barrier take ray_tpu's
+    second parameter, a group name: the one TorchBackend.on_worker_setup
+    registered resolves to the run's group; an unknown name raises
+    ValueError naming it, a non-str TypeError."""
+    grads, dtypes = ranks.grads
+    results = ranks.result()
+    want_sum = {k: sum(np.asarray(g[k], np.float64) for g in grads) for k in ("w", "b")}
+    for rank, got in enumerate(r["named"] for r in results):
+        assert all(np.array_equal(got["sync"][k], results[0]["named"]["sync"][k])
+                   for k in ("w", "b"))
+        assert np.array_equal(got["sync"]["w"], grads[0]["w"])
+        for k in ("w", "b"):
+            np.testing.assert_allclose(got["sum"][k], want_sum[k], rtol=0,
+                                       atol=1e-6 * np.abs(want_sum[k]).max())
+        for fn in ("sync_model_params", "allreduce_gradients", "barrier"):
+            assert "'no-such-group'" in got[f"{fn}-ValueError"], (rank, fn)
+            assert "must be a str" in got[f"{fn}-TypeError"], (rank, fn)
 
 
 def test_world_of_one_sends_nothing():

@@ -38,6 +38,33 @@ def sync(rank, world, per_rank, dtypes):
         set_session(None)
 
 
+def named_group(rank, world, per_rank, dtypes):
+    """The helpers under the name TorchBackend.on_worker_setup registered
+    the run's group by; an unknown name and a non-str are refused."""
+    from ray_tpu_torch.train import TorchBackend, TorchConfig
+
+    TorchBackend().on_worker_setup(rank, world, "run-group",
+                                   TorchConfig(distributed="off", collective_group=False,
+                                               device="cpu"))
+    set_session(TrainSession(rank, world, rank, experiment_name="named",
+                             group_name="run-group"))
+    try:
+        tree = _tree(per_rank[rank], dtypes)
+        out = {"sync": _bits(torch_utils.sync_model_params(tree, "run-group")),
+               "sum": _bits(torch_utils.allreduce_gradients(tree, "run-group", op="sum"))}
+        torch_utils.barrier("run-group")
+        for fn, args in ((torch_utils.sync_model_params, (tree,)),
+                         (torch_utils.allreduce_gradients, (tree,)), (torch_utils.barrier, ())):
+            for name, err in (("no-such-group", ValueError), (7, TypeError)):
+                try:
+                    fn(*args, name)
+                except err as e:
+                    out[f"{fn.__name__}-{type(e).__name__}"] = str(e)
+        return out
+    finally:
+        set_session(None)
+
+
 def allreduce(rank, world, per_rank, dtypes, op):
     """allreduce_gradients of this rank's gradients; then a barrier."""
     set_session(TrainSession(rank, world, rank, experiment_name="grads"))

@@ -132,13 +132,33 @@ Phases, in order; any failed check exits non-zero:
                on SAC's transitions for 3 iterations; an IMPALA and an
                APPO learner update on one batch. Every loss finite;
                prints env steps/s sampled and learner update ms.
+ 13. rllib_more — the main path, part 11: the rest of RLlib that needs
+               no runtime. Multi-agent PPO on two CartPole-v1 poles
+               written here (RLlib's MultiAgentCartPole shape), a module
+               per pole, at PPO's defaults for 3 iterations: every loss
+               finite, one learner update on the card against the CPU
+               (1e-4 of each leaf's max), a restored checkpoint's next
+               iteration bit for bit. DreamerV3 at ray_tpu's defaults on
+               CartPole-v1 for 2 iterations past learning_starts: every
+               loss term finite; one update on the card against the CPU
+               from the same state, batch and Gumbel noise (1e-4 of each
+               leaf's max; the same categories drawn, on a draw whose
+               every argmax is decided by more than 1e-5); a restored
+               checkpoint's next update bit for bit. The learner mesh:
+               PPO's update through a world-size-1 NCCL mesh bit for bit
+               against the unmeshed one; two gloo ranks on this card,
+               half of a 128-row minibatch each, equal to each other bit
+               for bit and within 1e-4 of each leaf's max of the whole
+               minibatch's update. Prints env steps/s sampled, update ms
+               (DreamerV3's, and the two ranks' beside the unmeshed, gloo
+               through the host) and DreamerV3's updates per iteration.
 
-Each path of phases 3-12 is driven with the kernels' launch and copy
+Each path of phases 3-13 is driven with the kernels' launch and copy
 counts set to 0 just before it and read just after; launches made in
-phase 2 do not count, those of the ranks of phases 7 and 9 do. No path may make the
+phase 2 do not count, those of the ranks of phases 7, 9 and 13 do. No path may make the
 wrappers copy an input (the model's q, k, v are views that TMA reads in
 place, on each rank's shard too). The kernels line sums the launches of
-phases 3-12, one entry for each kernel: a wrapper
+phases 3-13, one entry for each kernel: a wrapper
 sends bf16/fp16 to a wgmma kernel and fp32 to a kernel of its own
 (every product in 3xTF32 on the tensor cores), and counts the two apart.
 Phase 2 also requires two launches of the fp32 forward and of the fp32
@@ -147,8 +167,9 @@ no longer than SDPA's fp32 forward at GPT-2 124M's shape; the bf16 dK/dV
 kernel alone and the fp32 dQ + dK/dV pair to take no longer than SDPA's
 whole backward at GPT-2 124M's training shape.
 
-Phases 11 and 12 reach no Pallas kernel's counterpart (the LLM runner
-and RLlib's MLPs launch none); their launches are counted all the same.
+Phases 11, 12 and 13 reach no Pallas kernel's counterpart (the LLM
+runner, RLlib's MLPs and DreamerV3's GRU and MLPs launch none); their
+launches are counted all the same.
 
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
@@ -577,6 +598,7 @@ def _profile(fn, top: int = 6) -> dict:
     f32_gemm = [(ms, cnt) for n, ms, cnt in rows if _is_f32_gemm(n)]
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / wall_ms,
+            "kernel_launches": sum(r[2] for r in rows),
             "top": [{"name": n[:80], "ms": ms, "calls": cnt}
                     for n, ms, cnt in rows[:top]],
             "flash": [{"name": n[:80], "ms": ms, "calls": cnt}
@@ -2377,6 +2399,330 @@ def phase_rllib(shared: dict, device: str = "cuda", ppo_iters: int = 5):
     return row
 
 
+# Phase 13 (rllib_more): the rest of RLlib that needs no runtime. The
+# multi-agent environment has the shape of RLlib's own MultiAgentCartPole
+# example: one CartPole-v1 (the class above) per agent, each stepped by its
+# own agent's action; an agent whose pole is done stops acting, and the
+# episode ends when both are done.
+class TwoCartPoles:
+    possible_agents = ["a0", "a1"]
+    observation_dims = {"a0": 4, "a1": 4}
+    action_dims = {"a0": 2, "a1": 2}
+
+    def __init__(self):
+        self.poles = {a: CartPole() for a in self.possible_agents}
+        self.done = set()
+
+    def reset(self, seed=None):
+        self.done = set()
+        return {a: pole.reset(seed=None if seed is None else seed + i)[0]
+                for i, (a, pole) in enumerate(self.poles.items())}, {}
+
+    def step(self, actions):
+        obs, rew, term, trunc = {}, {}, {}, {}
+        for a, act in actions.items():
+            obs[a], rew[a], te, tr, _ = self.poles[a].step(act)
+            if te:
+                term[a] = True
+            if tr:
+                trunc[a] = True
+            if te or tr:
+                self.done.add(a)
+        over = len(self.done) == len(self.poles)
+        term["__all__"] = over and not trunc
+        trunc["__all__"] = over and bool(trunc)
+        return obs, rew, term, trunc, {}
+
+    def close(self):
+        pass
+
+
+def _pole_policy(agent_id, env_index=0, **kw):
+    return "p0" if agent_id == "a0" else "p1"
+
+
+# ray_tpu's own DreamerV3 test config (tests/test_rllib_dreamerv3.py), for
+# the CPU run of phase 13; the card runs the defaults.
+_DREAMER_SMALL = dict(hidden=32, deter=32, stoch=4, classes=4, batch_size_B=4,
+                      batch_length_T=8, horizon_H=5, learning_starts=64, training_ratio=4,
+                      num_bins=31)
+# The least top-2 gap of a Gumbel argmax that the card-against-CPU update
+# of DreamerV3 trusts: the two devices' f32 logits differ by ~1e-6, so a
+# larger gap decides both the same way. A full-width update takes ~18,000
+# argmaxes, and about one draw in three holds a smaller gap somewhere.
+_ARGMAX_MARGIN = 1e-5
+_ARGMAX_DRAWS = 10
+_DREAMER_LOSSES = ("wm_loss", "recon_loss", "reward_loss", "continue_loss", "kl_dyn",
+                   "kl_rep", "actor_loss", "critic_loss", "dream_return_mean",
+                   "actor_entropy", "total_wm_loss")
+
+
+def _worst_leaf(got, want) -> float:
+    """The largest max|got - want| / max|want| over two trees' leaves."""
+    from ray_tpu_torch.ops.tree import flatten
+
+    got, want = flatten(got), flatten(want)
+    return max(float(np.abs(np.asarray(got[k], np.float64) - w).max()
+                     / max(np.abs(np.asarray(w, np.float64)).max(), 1e-12))
+               for k, w in want.items())
+
+
+def _bitwise(a, b) -> bool:
+    from ray_tpu_torch.ops.tree import flatten
+
+    a, b = flatten(a), flatten(b)
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def _ppo_learner(device, state, mesh=None):
+    """PPO's learner at its defaults (CartPole's dims, hidden (64, 64)) on
+    ``device``, from ``state``, through ``mesh`` if given."""
+    from ray_tpu_torch.rllib import PPOConfig, TorchLearner
+    from ray_tpu_torch.rllib.algorithms.ppo import make_ppo_loss
+    from ray_tpu_torch.rllib.core.learner import make_optimizer
+
+    cfg = PPOConfig().environment(observation_dim=4, action_dim=2).learners(device=device)
+    learner = TorchLearner(cfg.rl_module_spec().build(), make_ppo_loss(cfg),
+                           make_optimizer(cfg), mesh=mesh)
+    learner.set_state(state)
+    return learner
+
+
+def _mesh_rank(rank, world, device, state, mb):
+    """Part (c), one of two gloo ranks sharing the card: PPO's learner
+    through a ("data",) mesh of both, each rank handed the whole minibatch
+    and keeping its half. Returns the update's metrics, parameters and
+    optimizer state, its host ms and this rank's kernel launches."""
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.parallel import MeshConfig
+    from ray_tpu_torch.rllib import SampleBatch
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    learner = _ppo_learner(device, state, MeshConfig().build(device))
+    metrics = learner.update(SampleBatch(dict(mb)))
+    after = learner.get_state()
+    wrappers = [getattr(_kernels, name) for name in _COPYING]
+    return {"metrics": metrics, "state": after,
+            "update_ms": _update_ms(learner, SampleBatch(dict(mb))),
+            "launches": _launch_counts(), "copies": {w.__name__: w.copies for w in wrappers}}
+
+
+def phase_rllib_more(shared: dict, device: str = "cuda", small: bool = False):
+    """Phase 13: multi-agent PPO, DreamerV3 and the learner sharded over a
+    data mesh, every module and learner on ``device`` (``small``: ray_tpu's
+    own small DreamerV3 test config, for a CPU run). Returns the kernel
+    launches and input copies that part (c)'s ranks counted, and the
+    phase's row."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import MeshConfig, _spawn
+    from ray_tpu_torch.rllib import DreamerV3Config, PPOConfig, SampleBatch
+    from ray_tpu_torch.rllib.algorithms import dreamerv3
+
+    row = {"device": device}
+
+    # (a) Multi-agent PPO at PPO's defaults (8 envs, 64-step fragments,
+    # batch 512, 4 epochs of 128-row minibatches), a module per pole.
+    cfg = (PPOConfig().environment(TwoCartPoles)
+           .multi_agent(policies=["p0", "p1"], policy_mapping_fn=_pole_policy)
+           .learners(device=device).debugging(seed=0))
+    ma = cfg.build()
+    group, stats, batches = ma.env_runner_group, {"s": 0.0, "rows": 0, "calls": 0}, []
+    real_sample, real_update = group.sample_fragments, ma.learner_group.update_epochs
+
+    def sample_fragments(weights=None):
+        t0 = time.perf_counter()
+        out = real_sample(weights)
+        stats["s"] += time.perf_counter() - t0
+        stats["rows"] += sum(len(f) for fl in out.values() for f in fl)
+        stats["calls"] += 1
+        return out
+
+    def update_epochs(per_module, **kw):
+        batches.append(per_module)
+        return real_update(per_module, **kw)
+
+    group.sample_fragments, ma.learner_group.update_epochs = sample_fragments, update_epochs
+    iters = 1 if small else 3
+    t0 = time.perf_counter()
+    results = [ma.train() for _ in range(iters)]
+    wall = time.perf_counter() - t0
+    keys = ("total_loss", "policy_loss", "vf_loss", "entropy", "mean_kl", "grad_norm")
+    _check(all(_finite(r[mid], keys) for r in results for mid in ("p0", "p1")),
+           f"multi-agent PPO's losses are not finite: {results}")
+    vector_steps = stats["calls"] * cfg.num_envs_per_env_runner * cfg.rollout_fragment_length
+    last = {mid: SampleBatch(dict(b)) for mid, b in batches[-1].items()}
+    mb = last["p0"].slice(0, cfg.minibatch_size)
+    state = ma.learner_group.learners["p0"].get_state()
+    row["multi_agent_ppo"] = {
+        "iterations": iters, "rows_per_module": {m: len(b) for m, b in last.items()},
+        "total_loss": [{m: r[m]["total_loss"] for m in ("p0", "p1")} for r in results],
+        "episode_return_mean": [r.get("episode_return_mean") for r in results],
+        "wall_s": wall, "sample_s": stats["s"],
+        "agent_steps_per_s_sampled": stats["rows"] / stats["s"],
+        "env_steps_per_s_sampled": vector_steps / stats["s"],
+        "learner_update_ms": _update_ms(_ppo_learner(device, state), mb)}
+    outs = {dev: _ppo_learner(dev, state) for dev in (device, "cpu")}
+    for learner in outs.values():
+        learner.update(SampleBatch(dict(mb)))
+    worst = _worst_leaf(outs[device].get_weights(), outs["cpu"].get_weights())
+    row["multi_agent_ppo"]["update_vs_cpu_worst_leaf_share"] = worst
+    _check(worst <= _RL_DEVICE_TOL, f"a multi-agent PPO update on {device} differs from the "
+                                    f"CPU's by {worst} of a leaf's max (limit {_RL_DEVICE_TOL})")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = ma.save(tmp)
+        restored = cfg.build()
+        restored.restore(path)
+    ma.learner_group.update_epochs = real_update
+    for algo in (ma, restored):
+        algo.learner_group.update_epochs({m: SampleBatch(dict(b)) for m, b in last.items()},
+                                         num_epochs=cfg.num_epochs,
+                                         minibatch_size=cfg.minibatch_size,
+                                         rng=np.random.default_rng(1))
+    same = _bitwise(ma.get_weights(), restored.get_weights())
+    row["multi_agent_ppo"]["restored_next_iteration_bitwise_equal"] = same
+    _check(same and restored.iteration == ma.iteration,
+           "the restored multi-agent PPO's next iteration differs from the original's")
+    ma.cleanup()
+    restored.cleanup()
+
+    # (b) DreamerV3 at ray_tpu's defaults on CartPole-v1, 2 iterations past
+    # learning_starts (the first already is: 512 rows an iteration).
+    dcfg = DreamerV3Config().environment(CartPole).learners(device=device).debugging(seed=0)
+    if small:
+        dcfg.training(**_DREAMER_SMALL).env_runners(num_envs_per_env_runner=4,
+                                                    rollout_fragment_length=16)
+    dream = dcfg.build()
+    res = []
+    t0 = time.perf_counter()
+    while sum("wm_loss" in r for r in res) < 2 and len(res) < 10:
+        res.append(dream.train())
+    wall = time.perf_counter() - t0
+    learned = [r for r in res if "wm_loss" in r]
+    _check(len(learned) == 2 and all(_finite(r, _DREAMER_LOSSES) for r in learned),
+           f"DreamerV3 did not learn with finite losses: {res}")
+    # One update on the card against the CPU from the same state, batch and
+    # noise, on the first draw whose every argmax (on the CPU) is decided by
+    # more than _ARGMAX_MARGIN; the card must then pick every category the
+    # CPU picked.
+    cpu = dcfg.copy().learners(device="cpu").build()
+    rng, skipped = np.random.default_rng(7), 0
+    real_argmax = dreamerv3._gumbel_argmax
+
+    def recorded_update(algo, seqs, noise):
+        """algo._update, returning each argmax's least top-2 gap and picks."""
+        gaps, picks = [], []
+
+        def argmax(logits, gumbel):
+            top2 = torch.topk((logits + gumbel).detach(), 2, dim=-1).values
+            gaps.append(float((top2[..., 0] - top2[..., 1]).min()))
+            picks.append(real_argmax(logits, gumbel))
+            return picks[-1]
+
+        dreamerv3._gumbel_argmax = argmax
+        try:
+            algo._update(seqs, noise)
+        finally:
+            dreamerv3._gumbel_argmax = real_argmax
+        return min(gaps), [p.cpu() for p in picks]
+
+    while True:
+        seqs, noise = dict(dream._sample_sequences(rng)), dream._draw_noise()
+        cpu.set_extra_state(dream.get_extra_state())
+        gap, cpu_picks = recorded_update(cpu, seqs, noise)
+        if gap > _ARGMAX_MARGIN or skipped == _ARGMAX_DRAWS - 1:
+            break
+        skipped += 1
+    _check(gap > _ARGMAX_MARGIN, f"{_ARGMAX_DRAWS} DreamerV3 draws each held an argmax "
+                                 f"decided by less than {_ARGMAX_MARGIN}")
+    _, card_picks = recorded_update(dream, seqs, noise)
+    _check(all(torch.equal(a, b) for a, b in zip(card_picks, cpu_picks)),
+           f"DreamerV3's update on {device} drew other categories than the CPU's")
+    worst = _worst_leaf(dream.get_weights(), cpu.get_weights())
+    _check(worst <= _RL_DEVICE_TOL, f"a DreamerV3 update on {device} differs from the CPU's "
+                                    f"by {worst} of a leaf's max (limit {_RL_DEVICE_TOL})")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = dream.save(tmp)
+        dream_restored = dcfg.build()
+        dream_restored.restore(path)
+    seqs = dict(dream._sample_sequences(rng))
+    for algo in (dream, dream_restored):
+        algo._update(seqs, algo._draw_noise())
+    dream_same = _bitwise(dream.get_extra_state(), dream_restored.get_extra_state())
+    _check(dream_same, "the restored DreamerV3's next update differs from the original's")
+    times = []
+    for _ in range(5):
+        noise = dream._draw_noise()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dream._update(seqs, noise)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    # One update under the profiler (the card only): its launches and the
+    # share of its wall time the card is busy.
+    profile = (_profile(lambda: dream._update(seqs, dream._draw_noise()), top=4)
+               if device != "cpu" else None)
+    row["dreamerv3"] = {
+        "iterations": len(res), "learning_iterations": len(learned),
+        "updates_per_iteration": [r["num_updates"] for r in learned],
+        "losses": [{k: r[k] for k in _DREAMER_LOSSES} for r in learned], "wall_s": wall,
+        "update_vs_cpu_worst_leaf_share": worst, "argmax_min_gap": gap,
+        "draws_skipped_for_near_ties": skipped,
+        "restored_next_update_bitwise_equal": dream_same,
+        "update_ms": statistics.median(times), "profile_update": profile}
+    for algo in (dream, cpu, dream_restored):
+        algo.cleanup()
+
+    # (c) The learner mesh. A world-size-1 mesh (NCCL on the card) against
+    # the unmeshed learner, bit for bit; then two gloo ranks on this card,
+    # half of a 128-row minibatch each, against the whole minibatch's
+    # update. gloo carries the all-reduces through the host: not NCCL.
+    backend = "nccl" if device == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            meshed = _ppo_learner(device, state, MeshConfig().build(device))
+            plain = _ppo_learner(device, state)
+            m_meshed, m_plain = (x.update(SampleBatch(dict(mb))) for x in (meshed, plain))
+            whole = plain.get_state()
+            world1_same = m_meshed == m_plain and _bitwise(meshed.get_state(), whole)
+            world1_ms = _update_ms(meshed, SampleBatch(dict(mb)))
+            plain_ms = _update_ms(plain, SampleBatch(dict(mb)))
+        finally:
+            dist.destroy_process_group()
+    _check(world1_same, f"PPO's update through a world-size-1 {backend} mesh differs from "
+                        f"the unmeshed update")
+    ranks = _spawn.run(_mesh_rank, 2, device, state, dict(mb), timeout=300)
+    ranks_same = all(_bitwise(r["state"], ranks[0]["state"]) and r["metrics"] ==
+                     ranks[0]["metrics"] for r in ranks[1:])
+    mesh_worst = _worst_leaf(ranks[0]["state"]["params"], whole["params"])
+    row["mesh"] = {"rows": len(mb), "world1_backend": backend,
+                   "world1_bitwise_equal": world1_same, "world1_update_ms": world1_ms,
+                   "unmeshed_update_ms": plain_ms, "world2_backend": "gloo",
+                   "ranks_on_one_card": 2, "world2_ranks_bitwise_equal": ranks_same,
+                   "world2_worst_leaf_share": mesh_worst,
+                   "world2_update_ms": [r["update_ms"] for r in ranks],
+                   "launches": [r["launches"] for r in ranks]}
+    _check(ranks_same, "the two ranks' parameters or optimizer states differ")
+    _check(mesh_worst <= _RL_DEVICE_TOL,
+           f"the two ranks' update differs from the whole minibatch's by {mesh_worst} of a "
+           f"leaf's max (limit {_RL_DEVICE_TOL})")
+    extra = {"launches": dict.fromkeys(_KERNELS, 0), "copies": dict.fromkeys(_COPYING, 0)}
+    for r in ranks:
+        extra = _add_counts(extra, r)
+    print("[rllib_more] " + json.dumps(row))
+    return {**extra, "row": row}
+
+
 # The main path's kernels as the kernels line names them: (the wrapper in
 # ray_tpu_torch.ops._kernels that launches it, whether it is the fp32
 # kernel, the source under ray_tpu_torch/csrc that holds it, the line of
@@ -2463,7 +2809,8 @@ def main() -> int:
              ("train_backend", lambda: phase_train_backend(shared), True),
              ("llm_parallel", lambda: phase_llm_parallel(shared), False),
              ("async_llm", lambda: phase_async_llm(shared), False),
-             ("rllib", lambda: phase_rllib(shared), False))
+             ("rllib", lambda: phase_rllib(shared), False),
+             ("rllib_more", lambda: phase_rllib_more(shared), False))
     launches = dict.fromkeys(_KERNELS, 0)
     for name, run, must_launch in paths:
         for w in wrappers:
@@ -2471,7 +2818,7 @@ def main() -> int:
         result = run()
         total = {"launches": _launch_counts(),
                  "copies": {w.__name__: w.copies for w in wrappers}}
-        if name in ("parallel", "train_backend"):
+        if name in ("parallel", "train_backend", "rllib_more"):
             total = _add_counts(total, result)
         counted, copies = total["launches"], total["copies"]
         print(f"[{name}] launches " + json.dumps(counted))

@@ -36,7 +36,8 @@ def _to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_numpy(v) for v in tree)
+        items = [_to_numpy(v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
     if isinstance(tree, torch.Tensor):
         from torch.distributed.tensor import DTensor
 

@@ -4,17 +4,20 @@ a local env runner and a local learner).
 The env runner steps vectorized envs on the host with one batched policy
 forward on the module's device per vector step; the learner runs its
 update (autograd, then the optax-style optimizer, in place) on that
-device. Algorithms are Trainables (``ray_tpu_torch.tune``): PPO, DQN, SAC,
-BC, MARWIL and CQL train end to end; IMPALA and APPO bring their V-trace
-losses and learners, whose asynchronous training step needs remote env
-runners. Remote env runners and learners (ROADMAP.md §1 item 7, part 2),
-multi-agent RL and DreamerV3 (the next RLlib slice) are not here."""
+device, or over a ``data`` DeviceMesh with the minibatch sharded over its
+ranks (``learners(mesh=...)``). Algorithms are Trainables
+(``ray_tpu_torch.tune``): PPO (single- and multi-agent), DQN, SAC, BC,
+MARWIL, CQL and DreamerV3 train end to end; IMPALA and APPO bring their
+V-trace losses and learners, whose asynchronous training step needs
+remote env runners. Remote env runners and learners wait for the runtime
+core (ROADMAP.md §1 item 7, part 2)."""
 
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.algorithms.appo import APPO, APPOConfig
 from ray_tpu_torch.rllib.algorithms.bc import BC, BCConfig
 from ray_tpu_torch.rllib.algorithms.cql import CQL, CQLConfig
 from ray_tpu_torch.rllib.algorithms.dqn import DQN, DQNConfig
+from ray_tpu_torch.rllib.algorithms.dreamerv3 import DreamerV3, DreamerV3Config
 from ray_tpu_torch.rllib.algorithms.impala import IMPALA, IMPALAConfig, vtrace
 from ray_tpu_torch.rllib.algorithms.marwil import MARWIL, MARWILConfig
 from ray_tpu_torch.rllib.algorithms.ppo import PPO, PPOConfig
@@ -34,6 +37,12 @@ from ray_tpu_torch.rllib.core.rl_module import (
     RLModuleSpec,
 )
 from ray_tpu_torch.rllib.env.env_runner import EnvRunnerGroup, SingleAgentEnvRunner
+from ray_tpu_torch.rllib.env.multi_agent import (
+    MultiAgentEnv,
+    MultiAgentEnvRunner,
+    MultiAgentEnvRunnerGroup,
+    shared_policy_mapping_fn,
+)
 from ray_tpu_torch.rllib.replay_buffer import ReplayBuffer
 from ray_tpu_torch.rllib.sample_batch import SampleBatch, compute_gae
 
@@ -48,8 +57,13 @@ __all__ = [
     "CQLConfig",
     "DQN",
     "DQNConfig",
+    "DreamerV3",
+    "DreamerV3Config",
     "MARWIL",
     "MARWILConfig",
+    "MultiAgentEnv",
+    "MultiAgentEnvRunner",
+    "MultiAgentEnvRunnerGroup",
     "ReplayBuffer",
     "SAC",
     "SACConfig",
@@ -72,5 +86,6 @@ __all__ = [
     "SampleBatch",
     "SingleAgentEnvRunner",
     "compute_gae",
+    "shared_policy_mapping_fn",
     "vtrace",
 ]

@@ -6,10 +6,13 @@ Counterpart of the reference's Algorithm (rllib/algorithms/algorithm.py:199
 (algorithm_config.py — configured by chained .environment()/.training()/
 .env_runners() calls). Algorithm subclasses ray_tpu_torch.tune.Trainable.
 
-Where ray_tpu's config takes a jax ``mesh`` for the learner, the port's
-takes the ``device`` every module lives on (default "cuda"; pass "cpu"
-for the CPU). Multi-agent configs (``.multi_agent()``) wait for the next
-RLlib slice; checkpoints are pickles of numpy state, as in ray_tpu."""
+Beside ray_tpu's options, ``learners()`` takes the ``device`` every
+module lives on (default "cuda"; pass "cpu" for the CPU); its ``mesh``
+is a one-dimensional torch DeviceMesh with a ``data`` dimension, over
+which the learner shards each minibatch (``core/learner.py``).
+Multi-agent configs (``.multi_agent()``) train one module per policy id
+(``env/multi_agent.py``); checkpoints are pickles of numpy state, keyed
+by module id where there are several, as in ray_tpu."""
 
 from __future__ import annotations
 
@@ -22,13 +25,12 @@ import numpy as np
 
 from ray_tpu_torch.rllib.core.rl_module import RLModuleSpec
 from ray_tpu_torch.rllib.env.env_runner import REMOTE_RUNNERS, EnvRunnerGroup
+from ray_tpu_torch.rllib.env.multi_agent import (
+    DEFAULT_MODULE_ID,
+    MultiAgentEnvRunnerGroup,
+    shared_policy_mapping_fn,
+)
 from ray_tpu_torch.tune.trainable import Trainable
-
-# The module id of a single-agent config (ray_tpu/rllib/env/multi_agent.py).
-DEFAULT_MODULE_ID = "default_policy"
-
-MULTI_AGENT = ("multi-agent RL (env/multi_agent.py) comes with the next RLlib "
-               "slice of the port: ROADMAP.md §1 item 7, part 1b")
 
 
 class AlgorithmConfig:
@@ -55,6 +57,7 @@ class AlgorithmConfig:
         # learner
         self.num_learners = 0
         self.device = "cuda"  # where the modules and the learner live
+        self.mesh = None  # a 1-D DeviceMesh ("data",): the learner's batch sharding
         # action space (filled by _infer_spaces; Box envs set continuous)
         self.continuous = False
         self.action_low: Any = None
@@ -63,6 +66,11 @@ class AlgorithmConfig:
         # / learner_connector — rllib/connectors/)
         self.env_to_module_connector = None
         self.learner_connector = None
+        # multi-agent (reference: AlgorithmConfig.multi_agent,
+        # rllib/algorithms/algorithm_config.py)
+        self.policies: dict | None = None
+        self.policy_mapping_fn = None
+        self.policies_to_train: list | None = None
         # evaluation (reference: AlgorithmConfig.evaluation —
         # evaluation_interval in train iterations, duration in episodes)
         self.evaluation_interval: int | None = None
@@ -116,16 +124,38 @@ class AlgorithmConfig:
             setattr(self, k, v)
         return self
 
-    def learners(self, *, num_learners: int | None = None,
+    def learners(self, *, num_learners: int | None = None, mesh=None,
                  device: str | None = None) -> "AlgorithmConfig":
         if num_learners is not None:
             self.num_learners = num_learners
+        if mesh is not None:
+            self.mesh = mesh
         if device is not None:
             self.device = device
         return self
 
-    def multi_agent(self, **kwargs) -> "AlgorithmConfig":
-        raise NotImplementedError(MULTI_AGENT)
+    def multi_agent(self, *, policies: dict | list | None = None,
+                    policy_mapping_fn=None,
+                    policies_to_train: list | None = None) -> "AlgorithmConfig":
+        """Configure multi-agent training (reference:
+        algorithm_config.py multi_agent()). ``policies`` maps module id ->
+        RLModuleSpec | dict(observation_dim=, action_dim=) | None
+        (None: dims inferred from the env's agents routed to that module);
+        a plain list of ids is shorthand for all-None specs."""
+        if policies is not None:
+            if isinstance(policies, (list, tuple, set)):
+                policies = {mid: None for mid in policies}
+            self.policies = dict(policies)
+        if policy_mapping_fn is not None:
+            self.policy_mapping_fn = policy_mapping_fn
+        if policies_to_train is not None:
+            self.policies_to_train = list(policies_to_train)
+        # The default mapping fn is filled in by _resolve_multi_agent_specs.
+        return self
+
+    @property
+    def is_multi_agent(self) -> bool:
+        return self.policies is not None
 
     def debugging(self, *, seed: int | None = None) -> "AlgorithmConfig":
         if seed is not None:
@@ -135,6 +165,9 @@ class AlgorithmConfig:
     # --- resolution ---
 
     def _infer_spaces(self) -> None:
+        if self.is_multi_agent:
+            self._resolve_multi_agent_specs()
+            return
         if self.observation_dim is not None and self.action_dim is not None:
             return
         if self.env is None:
@@ -162,8 +195,55 @@ class AlgorithmConfig:
             except Exception:
                 pass
 
+    def _resolve_multi_agent_specs(self) -> None:
+        """Turn every policies[mid] entry into a concrete RLModuleSpec on
+        this config's device, inferring dims from the env's agents where
+        unspecified."""
+        if self.policy_mapping_fn is None:
+            self.policy_mapping_fn = shared_policy_mapping_fn
+        needs_env = any(not isinstance(s, RLModuleSpec)
+                        and not (isinstance(s, dict) and "observation_dim" in s)
+                        for s in self.policies.values())
+        agent_dims: dict = {}
+        if needs_env:
+            if not callable(self.env):
+                raise ValueError("multi-agent spec inference needs environment(env=callable)")
+            env = self.env()
+            try:
+                for a in env.possible_agents:
+                    agent_dims[a] = (env.observation_dims[a], env.action_dims[a])
+            finally:
+                try:
+                    env.close()
+                except Exception:
+                    pass
+        hidden = tuple(self.model.get("hidden", (64, 64)))
+        resolved: dict[str, RLModuleSpec] = {}
+        for mid, s in self.policies.items():
+            if isinstance(s, RLModuleSpec):
+                resolved[mid] = s
+            elif isinstance(s, dict):
+                resolved[mid] = RLModuleSpec(
+                    observation_dim=s["observation_dim"], action_dim=s["action_dim"],
+                    hidden=tuple(s.get("hidden", hidden)),
+                    module_class=s.get("module_class"), device=self.device)
+            else:  # None: the first env agent mapping to this module defines dims
+                dims = next(((od, ad) for a, (od, ad) in agent_dims.items()
+                             if self.policy_mapping_fn(a, 0) == mid), None)
+                if dims is None:
+                    raise ValueError(f"cannot infer spaces for module {mid!r}: no env "
+                                     f"agent maps to it; pass an explicit spec")
+                resolved[mid] = RLModuleSpec(observation_dim=dims[0], action_dim=dims[1],
+                                             hidden=hidden, device=self.device)
+        self.policies = resolved
+
     def rl_module_specs(self) -> "dict[str, RLModuleSpec]":
-        """The one spec, under the default module id."""
+        """Per-module specs (multi-agent); single-agent configs expose their
+        one spec under the default module id."""
+        if self.is_multi_agent:
+            if any(not isinstance(s, RLModuleSpec) for s in self.policies.values()):
+                self._resolve_multi_agent_specs()
+            return dict(self.policies)
         return {DEFAULT_MODULE_ID: self.rl_module_spec()}
 
     def rl_module_spec(self) -> RLModuleSpec:
@@ -176,7 +256,13 @@ class AlgorithmConfig:
         )
 
     def copy(self) -> "AlgorithmConfig":
-        return copy.deepcopy(self)
+        mesh, self.mesh = self.mesh, None  # a DeviceMesh holds process groups
+        try:
+            c = copy.deepcopy(self)
+        finally:
+            self.mesh = mesh
+        c.mesh = mesh
+        return c
 
     def build(self) -> "Algorithm":
         if self.algo_class is None:
@@ -190,6 +276,7 @@ class Algorithm(Trainable):
     step() is `training_step()` plus metric aggregation."""
 
     config_class: Type[AlgorithmConfig] = AlgorithmConfig
+    supports_multi_agent: bool = False
     supports_learner_connector: bool = False
 
     def __init__(self, config: AlgorithmConfig | dict | None = None, trial_dir: str | None = None):
@@ -202,6 +289,11 @@ class Algorithm(Trainable):
             config = base
         elif config is None:
             config = self.config_class()
+        if config.is_multi_agent and not self.supports_multi_agent:
+            raise ValueError(
+                f"{type(self).__name__} does not support multi-agent "
+                f"training; use PPO or drop .multi_agent() from the config"
+            )
         if (config.learner_connector is not None
                 and not self.supports_learner_connector):
             raise ValueError(
@@ -218,6 +310,8 @@ class Algorithm(Trainable):
         # Offline algorithms (BC/CQL-style) may have no env at all.
         if cfg.env is None:
             self.env_runner_group = None
+        elif cfg.is_multi_agent:
+            self.env_runner_group = MultiAgentEnvRunnerGroup(cfg)
         else:
             self.env_runner_group = EnvRunnerGroup(cfg)
         self._rng = np.random.default_rng(cfg.seed)
@@ -253,6 +347,8 @@ class Algorithm(Trainable):
         cfg = self.algo_config
         if cfg.env is None:
             raise ValueError("evaluate() requires an environment")
+        if cfg.is_multi_agent:
+            raise NotImplementedError("evaluate() supports single-agent configs")
         n_episodes = int(duration or cfg.evaluation_duration)
         env = _make_env_fn(cfg.env)()
         module = self.get_module()
@@ -358,7 +454,11 @@ class Algorithm(Trainable):
         if module is None:
             module = cache[module_id] = (
                 self.algo_config.rl_module_specs()[module_id].build())
-        module.set_weights(self.learner_group.get_weights())
+        weights = self.learner_group.get_weights()
+        # Multi-module weight dicts key by module id.
+        if isinstance(weights, dict) and module_id in weights:
+            weights = weights[module_id]
+        module.set_weights(weights)
         return module
 
     def compute_single_action(self, observation, *, explore: bool = False,

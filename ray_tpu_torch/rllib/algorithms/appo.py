@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ray_tpu_torch.rllib.algorithms.impala import IMPALA, IMPALAConfig, vtrace_terms
+from ray_tpu_torch.rllib.core.learner import batch_mean
 from ray_tpu_torch.rllib.core.rl_module import categorical_entropy
 
 
@@ -30,12 +31,12 @@ def make_appo_loss(cfg: APPOConfig, T: int):
         # PPO clip on the importance ratio (the APPO twist on IMPALA).
         ratio = torch.exp(target_logp - behavior_logp)
         surrogate = torch.minimum(ratio * pg_adv, torch.clamp(ratio, 1 - clip, 1 + clip) * pg_adv)
-        policy_loss = -surrogate.mean()
-        vf_loss = 0.5 * torch.square(values - vs).mean()
-        entropy = categorical_entropy(logits).mean()
+        policy_loss = -batch_mean(surrogate)
+        vf_loss = 0.5 * batch_mean(torch.square(values - vs))
+        entropy = batch_mean(categorical_entropy(logits))
         total = policy_loss + cfg.vf_loss_coeff * vf_loss - cfg.entropy_coeff * entropy
         return total, {"policy_loss": policy_loss, "vf_loss": vf_loss, "entropy": entropy,
-                       "mean_ratio": ratio.mean()}
+                       "mean_ratio": batch_mean(ratio)}
 
     return loss_fn
 

@@ -14,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig
-from ray_tpu_torch.rllib.core.learner import LearnerGroup, TorchLearner, make_optimizer
+from ray_tpu_torch.rllib.core.learner import (LearnerGroup, TorchLearner, batch_mean,
+                                               make_optimizer)
 from ray_tpu_torch.rllib.core.rl_module import categorical_logp
 from ray_tpu_torch.rllib.sample_batch import ACTIONS, OBS, SampleBatch
 
@@ -36,8 +37,8 @@ def make_bc_loss():
     def loss_fn(params, apply_fn, batch):
         logits = apply_fn(params, batch[OBS])["action_dist_inputs"]
         logp = categorical_logp(logits, batch[ACTIONS])
-        loss = -logp.mean()
-        acc = (logits.argmax(-1) == batch[ACTIONS]).float().mean()
+        loss = -batch_mean(logp)
+        acc = batch_mean((logits.argmax(-1) == batch[ACTIONS]).float())
         return loss, {"bc_loss": loss, "action_accuracy": acc}
 
     return loss_fn
@@ -55,7 +56,7 @@ class BC(Algorithm):
         loss_fn = make_bc_loss()
 
         def factory():
-            return TorchLearner(spec.build(seed=seed), loss_fn, tx)
+            return TorchLearner(spec.build(seed=seed), loss_fn, tx, mesh=cfg.mesh)
 
         self.learner_group = LearnerGroup(factory, num_learners=cfg.num_learners)
 

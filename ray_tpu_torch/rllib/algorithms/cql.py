@@ -34,6 +34,7 @@ from ray_tpu_torch.rllib.algorithms.sac import (
     detached,
     gaussian_sample,
 )
+from ray_tpu_torch.rllib.core.learner import batch_mean
 from ray_tpu_torch.rllib.sample_batch import ACTIONS, NEXT_OBS, OBS, REWARDS, TERMINATEDS, SampleBatch
 
 
@@ -83,7 +84,7 @@ def make_cql_loss(cfg: CQLConfig, action_center, action_half, target_entropy: fl
         q1 = SACModule.q_apply(params["q1"], obs, acts_n)
         q2 = SACModule.q_apply(params["q2"], obs, acts_n)
         target = batch["td_targets"]
-        td_loss = torch.square(q1 - target).mean() + torch.square(q2 - target).mean()
+        td_loss = batch_mean(torch.square(q1 - target)) + batch_mean(torch.square(q2 - target))
 
         # -- CQL(H) conservative penalty ---------------------------------
         # Importance-sampled logsumexp over: uniform actions (density
@@ -111,7 +112,7 @@ def make_cql_loss(cfg: CQLConfig, action_center, action_half, target_entropy: fl
             cat = torch.cat(qs, dim=1)  # [B, 3n]
             lse = torch.logsumexp(cat, dim=1) - math.log(3.0 * n_act)
             q_data = SACModule.q_apply(params[qkey], obs, acts_n)
-            return (lse - q_data).mean()
+            return batch_mean(lse - q_data)
 
         cql_pen = penalty("q1") + penalty("q2")
         critic_loss = td_loss + cql_alpha * cql_pen
@@ -121,17 +122,17 @@ def make_cql_loss(cfg: CQLConfig, action_center, action_half, target_entropy: fl
         q_pi = torch.minimum(SACModule.q_apply(detached(params["q1"]), obs, a_pi),
                              SACModule.q_apply(detached(params["q2"]), obs, a_pi))
         bc_logp = _squashed_gaussian_logp(out_cur, acts_n)
-        sac_actor = (alpha.detach() * logp_pi - q_pi).mean()
-        bc_actor = (alpha.detach() * logp_pi - bc_logp).mean()
+        sac_actor = batch_mean(alpha.detach() * logp_pi - q_pi)
+        bc_actor = batch_mean(alpha.detach() * logp_pi - bc_logp)
         use_bc = batch["use_bc"]  # scalar 0/1 carried in the batch
         actor_loss = use_bc * bc_actor + (1.0 - use_bc) * sac_actor
 
-        alpha_loss = (-params["log_alpha"] * (logp_pi + target_entropy).detach()).mean()
+        alpha_loss = batch_mean(-params["log_alpha"] * (logp_pi + target_entropy).detach())
 
         total = critic_loss + actor_loss + alpha_loss
         return total, {"critic_loss": critic_loss, "td_loss": td_loss,
                        "cql_penalty": cql_pen, "actor_loss": actor_loss,
-                       "alpha": alpha, "q1_mean": q1.mean()}
+                       "alpha": alpha, "q1_mean": batch_mean(q1)}
 
     return loss_fn
 

@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig
-from ray_tpu_torch.rllib.core.learner import LearnerGroup, TorchLearner, make_optimizer
+from ray_tpu_torch.rllib.core.learner import (LearnerGroup, TorchLearner, batch_mean,
+                                               make_optimizer)
 from ray_tpu_torch.ops.tree import tree_map
 from ray_tpu_torch.rllib.core.rl_module import RLModule, _mlp_apply, _mlp_init, to_tensor
 from ray_tpu_torch.rllib.replay_buffer import ReplayBuffer
@@ -92,8 +93,9 @@ def make_dqn_loss():
         q = apply_fn(params, batch[OBS])["q_values"]
         qa = q.gather(-1, batch[ACTIONS][:, None].long())[:, 0]
         td = qa - batch["td_targets"]
-        loss = huber_loss(td).mean()
-        return loss, {"qf_loss": loss, "qf_mean": qa.mean(), "td_error_abs": td.abs().mean()}
+        loss = batch_mean(huber_loss(td))
+        return loss, {"qf_loss": loss, "qf_mean": batch_mean(qa),
+                      "td_error_abs": batch_mean(td.abs())}
 
     return loss_fn
 
@@ -142,7 +144,8 @@ class DQN(Algorithm):
         seed = cfg.seed
 
         def factory():
-            return TorchLearner(spec.build(seed=seed), loss_fn=make_dqn_loss(), optimizer=tx)
+            return TorchLearner(spec.build(seed=seed), loss_fn=make_dqn_loss(), optimizer=tx,
+                                mesh=cfg.mesh)
 
         self.learner_group = LearnerGroup(factory, num_learners=0)
         self._device = self.learner_group.local.device

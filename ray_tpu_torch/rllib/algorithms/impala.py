@@ -17,7 +17,8 @@ from __future__ import annotations
 import torch
 
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig
-from ray_tpu_torch.rllib.core.learner import LearnerGroup, TorchLearner, make_optimizer
+from ray_tpu_torch.rllib.core.learner import (LearnerGroup, TorchLearner, batch_mean,
+                                               make_optimizer)
 from ray_tpu_torch.rllib.core.rl_module import categorical_entropy, categorical_logp
 from ray_tpu_torch.rllib.env.env_runner import REMOTE_RUNNERS
 from ray_tpu_torch.rllib.sample_batch import (
@@ -108,12 +109,12 @@ def make_impala_loss(cfg: IMPALAConfig, T: int):
     def loss_fn(params, apply_fn, batch):
         logits, values, target_logp, behavior_logp, vs, pg_adv = vtrace_terms(
             params, apply_fn, batch, T, cfg)
-        policy_loss = -(target_logp * pg_adv).mean()
-        vf_loss = 0.5 * torch.square(values - vs).mean()
-        entropy = categorical_entropy(logits).mean()
+        policy_loss = -batch_mean(target_logp * pg_adv)
+        vf_loss = 0.5 * batch_mean(torch.square(values - vs))
+        entropy = batch_mean(categorical_entropy(logits))
         total = policy_loss + cfg.vf_loss_coeff * vf_loss - cfg.entropy_coeff * entropy
         return total, {"policy_loss": policy_loss, "vf_loss": vf_loss, "entropy": entropy,
-                       "mean_rho": torch.exp(target_logp - behavior_logp).mean()}
+                       "mean_rho": batch_mean(torch.exp(target_logp - behavior_logp))}
 
     return loss_fn
 
@@ -131,7 +132,8 @@ class IMPALA(Algorithm):
         spec, seed = cfg.rl_module_spec(), cfg.seed
 
         def factory():
-            return TorchLearner(spec.build(seed=seed), loss_fn, tx)
+            return TorchLearner(spec.build(seed=seed), loss_fn, tx, mesh=cfg.mesh,
+                                time_major_T=cfg.rollout_fragment_length)
 
         # IMPALA's learner is driver-local; async scale-out is on the
         # env-runner side.

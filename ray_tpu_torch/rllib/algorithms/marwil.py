@@ -23,7 +23,8 @@ import torch
 
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.algorithms.bc import _to_sample_batch
-from ray_tpu_torch.rllib.core.learner import LearnerGroup, TorchLearner, make_optimizer
+from ray_tpu_torch.rllib.core.learner import (LearnerGroup, TorchLearner, batch_mean,
+                                               make_optimizer)
 from ray_tpu_torch.rllib.core.rl_module import categorical_logp
 from ray_tpu_torch.rllib.sample_batch import (
     ACTIONS,
@@ -61,22 +62,22 @@ def make_marwil_loss(cfg: MARWILConfig):
         logp = categorical_logp(out["action_dist_inputs"], batch[ACTIONS])
         vf = out["vf_preds"]
         adv = batch[RETURNS] - vf
-        vf_loss = torch.square(adv).mean()
+        vf_loss = batch_mean(torch.square(adv))
         if beta != 0.0:
             c = torch.clamp(batch["ma_adv_norm"], min=1e-8)
             # exp-weight on a stop-grad advantage, clipped for stability
             # (reference clamps the exponent the same way).
             w = torch.exp(torch.clamp(beta * adv.detach() / c, -10.0, 10.0))
-            policy_loss = -(w * logp).mean()
+            policy_loss = -batch_mean(w * logp)
         else:
-            policy_loss = -logp.mean()
+            policy_loss = -batch_mean(logp)
         total = policy_loss + vf_coeff * vf_loss
-        acc = (out["action_dist_inputs"].argmax(-1) == batch[ACTIONS]).float().mean()
+        acc = batch_mean((out["action_dist_inputs"].argmax(-1) == batch[ACTIONS]).float())
         return total, {
             "policy_loss": policy_loss,
             "vf_loss": vf_loss,
             "action_accuracy": acc,
-            "mean_sqd_adv": torch.square(adv).mean(),
+            "mean_sqd_adv": batch_mean(torch.square(adv)),
         }
 
     return loss_fn
@@ -129,7 +130,7 @@ class MARWIL(Algorithm):
         loss_fn = make_marwil_loss(cfg)
 
         def factory():
-            return TorchLearner(spec.build(seed=seed), loss_fn, tx)
+            return TorchLearner(spec.build(seed=seed), loss_fn, tx, mesh=cfg.mesh)
 
         self.learner_group = LearnerGroup(factory, num_learners=cfg.num_learners)
         self._ma_adv_norm = 1.0  # RMS of advantages, host-side moving stat

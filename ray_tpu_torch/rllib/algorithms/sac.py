@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig
-from ray_tpu_torch.rllib.core.learner import LearnerGroup, TorchLearner, make_optimizer
+from ray_tpu_torch.rllib.core.learner import (LearnerGroup, TorchLearner, batch_mean,
+                                               make_optimizer)
 from ray_tpu_torch.ops.tree import tree_map
 from ray_tpu_torch.rllib.core.rl_module import RLModule, _mlp_apply, _mlp_init, to_tensor
 from ray_tpu_torch.rllib.replay_buffer import ReplayBuffer
@@ -147,7 +148,8 @@ def make_sac_loss(cfg: SACConfig, action_center, action_half, target_entropy: fl
         q1 = SACModule.q_apply(params["q1"], obs, acts_n)
         q2 = SACModule.q_apply(params["q2"], obs, acts_n)
         target = batch["td_targets"]
-        critic_loss = torch.square(q1 - target).mean() + torch.square(q2 - target).mean()
+        critic_loss = (batch_mean(torch.square(q1 - target))
+                       + batch_mean(torch.square(q2 - target)))
 
         # -- actor loss: fresh reparam sample through frozen critics ------
         out = apply_fn(params, obs)
@@ -155,15 +157,15 @@ def make_sac_loss(cfg: SACConfig, action_center, action_half, target_entropy: fl
         q1_pi = SACModule.q_apply(detached(params["q1"]), obs, a_pi)
         q2_pi = SACModule.q_apply(detached(params["q2"]), obs, a_pi)
         q_pi = torch.minimum(q1_pi, q2_pi)
-        actor_loss = (alpha.detach() * logp_pi - q_pi).mean()
+        actor_loss = batch_mean(alpha.detach() * logp_pi - q_pi)
 
         # -- temperature loss --------------------------------------------
-        alpha_loss = (-params["log_alpha"] * (logp_pi + target_entropy).detach()).mean()
+        alpha_loss = batch_mean(-params["log_alpha"] * (logp_pi + target_entropy).detach())
 
         total = critic_loss + actor_loss + alpha_loss
         return total, {"critic_loss": critic_loss, "actor_loss": actor_loss,
                        "alpha_loss": alpha_loss, "alpha": alpha,
-                       "entropy": -logp_pi.mean(), "q1_mean": q1.mean()}
+                       "entropy": -batch_mean(logp_pi), "q1_mean": batch_mean(q1)}
 
     return loss_fn
 
@@ -219,7 +221,8 @@ class SAC(Algorithm):
         seed = cfg.seed
 
         def factory():
-            return TorchLearner(spec.build(seed=seed), loss_fn=loss_fn, optimizer=tx)
+            return TorchLearner(spec.build(seed=seed), loss_fn=loss_fn, optimizer=tx,
+                                mesh=cfg.mesh)
 
         self.learner_group = LearnerGroup(factory, num_learners=0)
         self._device = self.learner_group.local.device

@@ -7,24 +7,88 @@ global-norm clipping, in optax's order) and the parameters updated IN
 PLACE (ray_tpu donates the old buffers and returns new ones).
 
 The learner lives in the driver process, on the module's device.
-Learner actors (``num_learners > 0``) and a learner sharded over a mesh
-wait for ROADMAP.md §1 item 7 part 2 and the next RLlib slice.
+Learner actors (``num_learners > 0``) wait for ROADMAP.md §1 item 7,
+part 2.
+
+With ``mesh`` (a one-dimensional DeviceMesh with a ``data`` dimension)
+the update is ray_tpu's SPMD program over that mesh: the parameters
+and the optimizer state replicated, the minibatch sharded over
+``data``. Every rank runs the same algorithm from the same seed, so
+every rank is handed the same whole minibatch; each keeps its own
+contiguous block of rows (``P("data")``'s layout) and computes the
+update of the WHOLE minibatch: the losses take their means with
+``batch_mean``, which all-reduces the rank's partial sum (so the
+advantage normalisation, every loss term and every metric are of the
+whole minibatch), and the ranks' gradients are averaged in one
+all-reduce before the optimizer, so every rank ends with the same
+parameters and optimizer state, bit for bit. Only ``all_reduce`` is
+needed, which gloo takes on CUDA tensors as well (the functional
+collectives that DTensor's redistributions use are not). A minibatch
+whose rows do not divide over the ranks raises ValueError, as jit's
+``in_shardings`` does.
 """
 
 from __future__ import annotations
 
+import contextvars
 from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ray_tpu_torch.ops import optim
 from ray_tpu_torch.ops.tree import flatten, tree_map, unflatten
-from ray_tpu_torch.rllib.core.rl_module import to_tensor
+from ray_tpu_torch.rllib.core.rl_module import to_numpy, to_tensor
 from ray_tpu_torch.rllib.sample_batch import SampleBatch
 
 REMOTE_LEARNERS = ("num_learners > 0 (learner actors) waits for the runtime core: "
                    "ROADMAP.md §1 item 7, part 2")
+
+
+# The process group of the ``data`` dimension while a learner with a mesh
+# computes its loss; None otherwise (batch_mean is then a plain mean).
+_DATA_GROUP: contextvars.ContextVar = contextvars.ContextVar("data_group", default=None)
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """all_reduce(SUM) of each rank's partial sum. Every rank computes the
+    same loss from the total and the learner averages the ranks'
+    gradients, so the backward gives each rank world_size times the
+    incoming gradient: the ranks' mean of the parameters' gradients is
+    then the gradient of the one loss, terms that reach a parameter
+    without passing through the batch (SAC's temperature) included."""
+
+    @staticmethod
+    def forward(ctx, partial, group):
+        ctx.world = dist.get_world_size(group)
+        total = partial.clone()
+        dist.all_reduce(total, group=group)
+        return total
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.world, None
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of every element of ``x``, a tensor of per-row values, over
+    the whole minibatch: the sum of this rank's rows over all ranks of the
+    learner's ``data`` mesh, divided by the whole count. Without a mesh it
+    is this tensor's mean, by the same formula (sum, then divide), so
+    that a mesh of one rank gives the same bits."""
+    total, count = x.sum(), x.numel()
+    group = _DATA_GROUP.get()
+    if group is not None:
+        total = _SumOverRanks.apply(total, group)
+        count *= dist.get_world_size(group)
+    return total / count
+
+
+def batch_std(x: torch.Tensor) -> torch.Tensor:
+    """The population standard deviation (jnp.std's) of ``x`` over the
+    whole minibatch."""
+    return torch.sqrt(batch_mean(torch.square(x - batch_mean(x))))
 
 
 def make_optimizer(cfg) -> optim.GradientTransformation:
@@ -43,10 +107,19 @@ class TorchLearner:
     supplied by the algorithm; ``batch`` holds tensors on the learner's
     device. The optimizer works on the parameters flattened to {dotted
     path: tensor} in jax's sorted-key order, so that the global norm sums
-    the leaves in the reference's order."""
+    the leaves in the reference's order.
+
+    ``mesh``: a one-dimensional DeviceMesh whose dimension is named
+    ``data_axis``; see the module's docstring. ``time_major_T``: the
+    rollout length of a loss that reads its rows as t-major [T, B]
+    (V-trace's); with a mesh, each rank then keeps a contiguous block of
+    the B columns (the whole of each of its trajectories), where the
+    reference keeps a block of the flat rows and XLA moves the rows the
+    time recursion needs."""
 
     def __init__(self, module, loss_fn: Callable, optimizer: optim.GradientTransformation,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None, data_axis: str = "data",
+                 time_major_T: int | None = None):
         self.module = module
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -56,21 +129,66 @@ class TorchLearner:
         # Advances across update_epochs calls: fresh minibatch permutations
         # every training_step.
         self._rng = np.random.default_rng(seed)
+        self.mesh = mesh
+        self._group = None
+        self._time_major_T = time_major_T
+        if mesh is not None:
+            if mesh.ndim != 1 or tuple(mesh.mesh_dim_names or ()) != (data_axis,):
+                raise ValueError(
+                    f"the learner's mesh must have the one dimension {data_axis!r}, got "
+                    f"dimensions {mesh.mesh_dim_names} of shape {tuple(mesh.shape)}")
+            self._group = mesh.get_group(data_axis)
+            self._rank = mesh.get_local_rank(data_axis)
+            self._world = mesh.size()
+
+    def _local_rows(self, batch: dict) -> dict:
+        """This rank's block of every column (leaves of rank 0, such as
+        CQL's ``use_bc``, are replicated)."""
+        n, r, T = self._world, self._rank, self._time_major_T
+
+        def block(a):
+            if not hasattr(a, "shape"):
+                a = np.asarray(a)
+            if a.ndim == 0:
+                return a
+            if T is not None:  # [T*B] t-major: a block of the B columns
+                cols = a.reshape((T, -1) + a.shape[1:])
+                if cols.shape[1] % n:
+                    raise ValueError(f"{cols.shape[1]} columns of a t-major batch do not "
+                                     f"divide over the {n} ranks of the data mesh")
+                b = cols.shape[1] // n
+                return cols[:, r * b:(r + 1) * b].reshape((-1,) + a.shape[1:])
+            if a.shape[0] % n:
+                raise ValueError(f"a minibatch of {a.shape[0]} rows does not divide over "
+                                 f"the {n} ranks of the data mesh")
+            b = a.shape[0] // n
+            return a[r * b:(r + 1) * b]
+
+        return {k: tree_map(block, v) for k, v in batch.items()}
 
     def update(self, batch: SampleBatch) -> dict:
         """One gradient step on ``batch`` (already minibatched by the
-        algorithm; values may be nested trees of arrays)."""
+        algorithm; values may be nested trees of arrays). With a mesh,
+        every rank passes the whole minibatch and keeps its block."""
+        if self._group is not None:
+            batch = self._local_rows(batch)
         tbatch = {k: tree_map(lambda a: to_tensor(a, self.device), v)
                   for k, v in batch.items()}
         flat = flatten(self.module.params)
         live = {k: p.detach().requires_grad_(True) for k, p in flat.items()}
-        with torch.enable_grad():
-            loss, metrics = self.loss_fn(unflatten(self.module.params, live),
-                                         self.module.apply, tbatch)
+        token = _DATA_GROUP.set(self._group)
+        try:
+            with torch.enable_grad():
+                loss, metrics = self.loss_fn(unflatten(self.module.params, live),
+                                             self.module.apply, tbatch)
+        finally:
+            _DATA_GROUP.reset(token)
         grads = torch.autograd.grad(loss, list(live.values()), allow_unused=True)
         # A parameter the loss does not reach has a zero gradient (JAX's).
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(live.items(), grads)}
+        if self._group is not None:
+            grads = self._mean_over_ranks(grads)
         updates, self.opt_state = self.optimizer.update(grads, self.opt_state, flat)
         optim.apply_updates(flat, updates)
         metrics["total_loss"] = loss
@@ -79,6 +197,14 @@ class TorchLearner:
         values = torch.stack([v.detach().float() for v in metrics.values()]).tolist()
         self._metrics = dict(zip(metrics, values))
         return self._metrics
+
+    def _mean_over_ranks(self, grads: dict) -> dict:
+        """The ranks' mean of each gradient, in one all-reduce of them all."""
+        flat = torch.cat([g.reshape(-1) for g in grads.values()])
+        dist.all_reduce(flat, group=self._group)
+        flat = flat / self._world
+        parts = torch.split(flat, [g.numel() for g in grads.values()])
+        return {k: p.view_as(g) for (k, g), p in zip(grads.items(), parts)}
 
     def update_epochs(self, batch: SampleBatch, *, num_epochs: int, minibatch_size: int,
                       rng: np.random.Generator | None = None) -> dict:
@@ -102,7 +228,7 @@ class TorchLearner:
 
     def get_state(self) -> dict:
         return {"params": self.module.get_weights(),
-                "opt_state": tree_map(lambda t: t.detach().cpu().numpy(), self.opt_state)}
+                "opt_state": tree_map(to_numpy, self.opt_state)}
 
     def set_state(self, state: dict) -> None:
         self.module.set_weights(state["params"])

@@ -34,6 +34,13 @@ def to_tensor(x, device) -> torch.Tensor:
     return t.to(device)
 
 
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t``, never a view of it: the learner updates its
+    tensors in place, also on the CPU, where ``.cpu().numpy()`` would
+    share their memory."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
 @dataclasses.dataclass
 class RLModuleSpec:
     """Reference: rllib/core/rl_module/rl_module.py RLModuleSpec; with the
@@ -80,7 +87,7 @@ class RLModule:
     forward_exploration = forward_inference
 
     def get_weights(self) -> Any:
-        return tree_map(lambda t: t.detach().cpu().numpy(), self.params)
+        return tree_map(to_numpy, self.params)
 
     def set_weights(self, weights: Any) -> None:
         # A copy: the module updates its tensors in place (the learner),

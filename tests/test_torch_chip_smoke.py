@@ -3,8 +3,9 @@ backward kernels to, the pair count its bounds are built on, its kernels
 line, phase 6's routing and f32 GEMM helpers, phase 7's leaf-wise
 comparison, shard slicing and the launch counts its ranks report, and
 phase 8's merged-LoRA reference, token check and JSON prefix check,
-phase 9's resumed-run check and data-parallel limit, and phase 10's
-reading of a pipeline rank's failure."""
+phase 9's resumed-run check and data-parallel limit, phase 10's
+reading of a pipeline rank's failure, and phases 11-13 run on the CPU
+(phase 13's two-agent CartPole against two CartPoles)."""
 
 import math
 
@@ -502,6 +503,44 @@ def test_rllib_phase_runs_on_the_cpu(capsys):
     assert row["dqn"]["learning_iterations"] == row["sac"]["learning_iterations"] == 3
     assert set(row) >= {"ppo", "dqn", "sac", "bc", "marwil", "cql", "impala", "appo"}
     assert "[rllib] " in capsys.readouterr().out
+
+
+def test_rllib_more_phase_runs_on_the_cpu(capsys):
+    """Phase 13 end to end with every module on the CPU (ray_tpu's small
+    DreamerV3 test config; the mesh's two ranks on gloo CPU): its checks
+    pass, its ranks report no kernel launch and it prints its row."""
+    out = chip_smoke.phase_rllib_more({}, device="cpu", small=True)
+    row = out["row"]
+    assert row["multi_agent_ppo"]["restored_next_iteration_bitwise_equal"]
+    assert set(row["multi_agent_ppo"]["rows_per_module"]) == {"p0", "p1"}
+    assert row["dreamerv3"]["updates_per_iteration"] == [8, 8]
+    assert row["dreamerv3"]["restored_next_update_bitwise_equal"]
+    assert row["mesh"]["world1_bitwise_equal"] and row["mesh"]["world2_ranks_bitwise_equal"]
+    assert set(out["launches"].values()) == {0}
+    assert "[rllib_more] " in capsys.readouterr().out
+
+
+def test_two_cartpoles_end_when_both_poles_are_done():
+    """Phase 13's two-agent CartPole: each pole is a CartPole-v1 stepped by
+    its own agent; a done pole's agent leaves, the episode ends with the
+    last, and each agent's rewards are its own pole's."""
+    env = chip_smoke.TwoCartPoles()
+    obs, _ = env.reset(seed=3)
+    ref = {a: chip_smoke.CartPole() for a in ("a0", "a1")}
+    for i, (a, pole) in enumerate(ref.items()):
+        assert (pole.reset(seed=3 + i)[0] == obs[a]).all()
+    live, steps = {"a0", "a1"}, 0
+    while live:
+        acts = {a: (steps + (a == "a1")) % 2 for a in live}
+        obs, rew, term, trunc, _ = env.step(acts)
+        steps += 1
+        for a in acts:
+            o, r, te, tr, _ = ref[a].step(acts[a])
+            assert (o == obs[a]).all() and r == rew[a]
+            if te or tr:
+                live.discard(a)
+        assert term["__all__"] == (not live and not any(k != "__all__" for k in trunc))
+    assert steps < 500
 
 
 def test_async_phase_runs_on_the_cpu(capsys):

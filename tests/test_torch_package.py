@@ -42,7 +42,9 @@ missing = sorted({"ray_tpu_torch.ops.moe", "ray_tpu_torch.ops.optim",
                   "ray_tpu_torch.rllib.algorithms.sac", "ray_tpu_torch.rllib.algorithms.bc",
                   "ray_tpu_torch.rllib.algorithms.marwil", "ray_tpu_torch.rllib.algorithms.cql",
                   "ray_tpu_torch.rllib.algorithms.impala",
-                  "ray_tpu_torch.rllib.algorithms.appo"}
+                  "ray_tpu_torch.rllib.algorithms.appo",
+                  "ray_tpu_torch.rllib.algorithms.dreamerv3",
+                  "ray_tpu_torch.rllib.env.multi_agent"}
                  - set(sys.modules))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "ray_tpu"
@@ -57,10 +59,11 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, missing, bad = out.stdout.split(" ", 2)
-    assert int(n_modules) >= 56
+    assert int(n_modules) >= 58
     assert missing == "[]"  # the MoE ops, the optimizers, the parallel slice,
     # the LLM plane's paged KV, LoRA, guided and pipeline modules, the
-    # Train backend, RLlib, Tune's Trainable and the exceptions were imported
+    # Train backend, RLlib (multi-agent and DreamerV3 too), Tune's
+    # Trainable and the exceptions were imported
     assert bad.strip() == "[]"
 
 
@@ -83,7 +86,21 @@ ENTRY_POINTS = {
     "BCConfig.build": lambda: rllib.BCConfig().offline(
         {"obs": np.zeros((4, 4), np.float32), "actions": np.zeros(4, np.int64)}
     ).environment(observation_dim=4, action_dim=2).build(),
+    "DreamerV3Config.build": lambda: rllib.DreamerV3Config().environment(
+        observation_dim=4, action_dim=2).build(),
+    "PPOConfig.multi_agent.build": lambda: rllib.PPOConfig().environment(
+        _TwoAgents).multi_agent(policies=["a0", "a1"],
+                                policy_mapping_fn=lambda agent, i=0, **kw: agent).build(),
 }
+
+
+class _TwoAgents(rllib.MultiAgentEnv):
+    possible_agents = ["a0", "a1"]
+    observation_dims = {"a0": 3, "a1": 3}
+    action_dims = {"a0": 2, "a1": 2}
+
+    def reset(self, seed=None):
+        return {a: np.zeros(3, np.float32) for a in self.possible_agents}, {}
 
 
 def _load_saved_tree():

@@ -5,7 +5,7 @@ runner's batch, greedy evaluation and ``compute_single_action``,
 checkpoints (a JAX PPO checkpoint's learner parameters read into the
 port through ``params_from_jax``; the port's own restored state giving
 the same next update bit for bit), and what the port refuses until the
-runtime core or the next RLlib slice.
+runtime core.
 
 Inputs are made with numpy from a seed, or sampled by the runners;
 both packages start from the JAX algorithm's weights. Parameters within
@@ -28,7 +28,7 @@ from ray_tpu.rllib.algorithms import ppo as jppo
 from ray_tpu.rllib.sample_batch import SampleBatch as JBatch
 from ray_tpu_torch.interop import params_from_jax
 from ray_tpu_torch.ops import tree as ttree
-from ray_tpu_torch.rllib import AlgorithmConfig, SampleBatch
+from ray_tpu_torch.rllib import SampleBatch
 from ray_tpu_torch.rllib.algorithms import appo as tappo
 from ray_tpu_torch.rllib.algorithms import bc as tbc
 from ray_tpu_torch.rllib.algorithms import cql as tcql
@@ -37,7 +37,7 @@ from ray_tpu_torch.rllib.algorithms import marwil as tmarwil
 from ray_tpu_torch.rllib.algorithms import ppo as tppo
 from ray_tpu_torch.rllib.algorithms import sac as tsac
 from ray_tpu_torch.rllib.core import rl_module as tmod
-from torch_rllib_helpers import cql_noise, leaves_close
+from torch_rllib_helpers import SignalMatch, cql_noise, leaves_close
 
 
 def _episodes(seed, n=256, obs_dim=4, n_actions=2):
@@ -211,15 +211,16 @@ def test_restored_checkpoint_gives_the_same_next_update(tmp_path, algo):
 
 
 def test_what_waits_raises():
-    """Remote runners and learners wait for the runtime core, multi-agent
-    configs for the next RLlib slice."""
+    """Remote runners and learners wait for the runtime core, for
+    single- and multi-agent configs alike."""
     cfg = tppo.PPOConfig().environment("CartPole-v1").learners(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7, part 2"):
-        cfg.copy().env_runners(num_env_runners=2).build()
-    with pytest.raises(NotImplementedError, match="item 7, part 2"):
-        cfg.copy().learners(num_learners=2).build()
-    with pytest.raises(NotImplementedError, match="multi-agent"):
-        AlgorithmConfig().multi_agent(policies=["a"])
+    multi = (tppo.PPOConfig().environment(SignalMatch).learners(device="cpu")
+             .multi_agent(policies=["a0", "a1"], policy_mapping_fn=lambda a, i=0, **k: a))
+    for c in (cfg, multi):
+        with pytest.raises(NotImplementedError, match="item 7, part 2"):
+            c.copy().env_runners(num_env_runners=2).build()
+        with pytest.raises(NotImplementedError, match="item 7, part 2"):
+            c.copy().learners(num_learners=2).build()
     assert cfg.rl_module_spec().device == "cpu"
     assert tppo.PPOConfig().device == "cuda"
 

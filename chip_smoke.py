@@ -152,13 +152,31 @@ Phases, in order; any failed check exits non-zero:
                minibatch's update. Prints env steps/s sampled, update ms
                (DreamerV3's, and the two ranks' beside the unmeshed, gloo
                through the host) and DreamerV3's updates per iteration.
+ 14. runtime — the main path, part 12: the task/actor core
+               (ray_tpu_torch.init / remote / get / put / kill /
+               shutdown). init() with no num_gpus counts this card as
+               GPU: 1; prints its seconds and the lane each native piece
+               took (built from ray_tpu_torch/src into
+               build/ray_tpu_torch/native). 1,000 no-op tasks and 1,000
+               calls of one actor (tasks/s, calls/s). A num_gpus=1 task
+               runs the bf16 flash forward at (4, 1024, 12, 64) on q, k, v
+               put by the driver: its CUDA result equals the driver's own
+               launch bit for bit, and the task sees only its lease; a
+               chipless task sees no device. A 256 MiB tensor on the card
+               and one on the host, put and got back bit for bit (ms and
+               GB/s of each). A num_gpus=1 actor holds phase 4's engine on
+               phase 4's weights, passed as object refs, and serves phase
+               4's 8 prompts: phase 4's tokens (decode tokens/s beside
+               phase 4's). After shutdown() no process the cluster started
+               is left.
 
-Each path of phases 3-13 is driven with the kernels' launch and copy
+Each path of phases 3-14 is driven with the kernels' launch and copy
 counts set to 0 just before it and read just after; launches made in
-phase 2 do not count, those of the ranks of phases 7, 9 and 13 do. No path may make the
+phase 2 do not count, those of the ranks of phases 7, 9 and 13 and of
+phase 14's workers do. No path may make the
 wrappers copy an input (the model's q, k, v are views that TMA reads in
 place, on each rank's shard too). The kernels line sums the launches of
-phases 3-13, one entry for each kernel: a wrapper
+phases 3-14, one entry for each kernel: a wrapper
 sends bf16/fp16 to a wgmma kernel and fp32 to a kernel of its own
 (every product in 3xTF32 on the tensor cores), and counts the two apart.
 Phase 2 also requires two launches of the fp32 forward and of the fp32
@@ -2723,6 +2741,337 @@ def phase_rllib_more(shared: dict, device: str = "cuda", small: bool = False):
     return {**extra, "row": row}
 
 
+# Phase 14's sizes: no-op tasks and actor calls timed, the bytes of each
+# tensor put and got, and the flash task's shape (GPT-2 124M's forward,
+# bf16).
+_RUNTIME_CALLS = 1000
+_RUNTIME_PUT_BYTES = 256 << 20
+_RUNTIME_FLASH_SHAPE = (4, 1024, 12, 64)
+
+
+def _worker_counts() -> dict:
+    """This process's kernel launches and input copies, as the ranks of
+    phases 7, 9 and 13 report them."""
+    from ray_tpu_torch.ops import _kernels
+
+    wrappers = [getattr(_kernels, name) for name in _COPYING]
+    return {"launches": _launch_counts(), "copies": {w.__name__: w.copies for w in wrappers}}
+
+
+def _flash_task(q, k, v):
+    """Phase 14's GPU task: the flash forward on the leased card (q, k, v
+    arrive there as top-level object refs). Returns the output, then this
+    worker's counts for the call, its pid, the devices it sees and when
+    it started (its inputs had arrived)."""
+    import os
+
+    started = time.time()
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops.attention import flash_attention
+
+    for name in _COPYING:
+        w = getattr(_kernels, name)
+        w.launches = w.launches_fp32 = w.copies = 0
+    with torch.inference_mode():
+        out = flash_attention(q, k, v, causal=True)
+    if out.is_cuda:
+        torch.cuda.synchronize()
+    return out, {**_worker_counts(), "pid": os.getpid(), "started": started,
+                 "input_device": q.device.type,
+                 "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                 "device_count": torch.cuda.device_count()}
+
+
+def _chipless_task():
+    """Phase 14's chipless task: the devices it sees."""
+    import os
+
+    return {"pid": os.getpid(), "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device_count": torch.cuda.device_count()}
+
+
+class _EngineActor:
+    """Phase 14's GPU actor: an LLMEngine of phase 4's configuration on
+    phase 4's weights, which arrive as a tree of object refs (one per
+    leaf, each a top-level tensor that lands on the actor's card)."""
+
+    def __init__(self, param_refs, model, device):
+        import os
+
+        import ray_tpu_torch
+        from ray_tpu_torch.llm import LLMConfig, LLMEngine
+        from ray_tpu_torch.ops import _kernels
+        from ray_tpu_torch.ops.tree import tree_leaves, tree_map
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        for name in _COPYING:
+            w = getattr(_kernels, name)
+            w.launches = w.launches_fp32 = w.copies = 0
+        params = tree_map(lambda r: ray_tpu_torch.get(r, timeout=300), param_refs,
+                          is_leaf=lambda x: isinstance(x, ray_tpu_torch.ObjectRef))
+        devices = {t.device.type for t in tree_leaves(params)}
+        self.eng = LLMEngine(LLMConfig(model=model, max_num_seqs=8, max_seq_len=1024,
+                                       tokenizer="byte"), params, device=device)
+        self.info = {"pid": os.getpid(), "param_devices": sorted(devices),
+                     "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+    def serve(self, prompts, n_new):
+        from ray_tpu_torch.llm import SamplingParams
+
+        with torch.inference_mode():
+            outs, times = _serve(self.eng, prompts,
+                                 SamplingParams(max_tokens=n_new, ignore_eos=True))
+        return [o.token_ids for o in outs], times, {**self.info, **_worker_counts()}
+
+
+def _live(pids) -> list:
+    """The pids among ``pids`` that still run (zombies count as gone)."""
+    import os
+
+    alive = []
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] != "Z":
+                    alive.append(pid)
+        except OSError:
+            pass
+    return alive
+
+
+def _cluster_processes(root: int) -> set:
+    """The processes descended from ``root`` that run the port's core (its
+    head shards, zygote and workers: ``python -m ray_tpu_torch._private.*``,
+    and the workers forked from the zygote)."""
+    import os
+
+    parent = {}
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    parent[int(d)] = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, ValueError, IndexError):
+                pass
+    out, frontier = set(), {root}
+    while frontier:
+        frontier = {p for p, pp in parent.items() if pp in frontier} - out
+        out |= frontier
+    mine = set()
+    for pid in out:
+        try:
+            with open(f"/proc/{pid}/cmdline") as f:
+                if "ray_tpu_torch._private." in f.read():
+                    mine.add(pid)
+        except OSError:
+            pass
+    return mine
+
+
+def phase_runtime(shared: dict, device: str = "cuda", small: bool = False):
+    """Phase 14: the task/actor core (ray_tpu_torch.init / remote / get /
+    put / wait / kill / shutdown) on this machine. Returns the kernel
+    launches and input copies that its workers counted (the flash task's
+    and the engine actor's), and its row. ``small`` (the CPU test): 50
+    calls and 1 MiB tensors instead of 1,000 and 256 MiB."""
+    import os
+
+    import ray_tpu_torch
+    from ray_tpu_torch._private import evloop, native_sched, shm_store, wirefmt
+    from ray_tpu_torch.ops.attention import flash_attention
+    from ray_tpu_torch.ops.tree import tree_map
+
+    calls = 50 if small else _RUNTIME_CALLS
+    put_bytes = (1 << 20) if small else _RUNTIME_PUT_BYTES
+    row = {}
+    earlier = _cluster_processes(os.getpid())  # another cluster's, exiting
+    t0 = time.perf_counter()
+    # On the card the GPU comes from detection; the CPU test names one
+    # (resources only: nothing there calls CUDA).
+    ray_tpu_torch.init(
+        object_store_memory=3 * put_bytes + (512 << 20),
+        **({} if device == "cuda" else {"num_gpus": 1}))
+    row["init_s"] = time.perf_counter() - t0
+    row["resources"] = {k: v for k, v in ray_tpu_torch.cluster_resources().items()
+                        if k in ("CPU", "GPU")}
+    row["native_lanes"] = {
+        "object_store (libobjstore.so)": "native" if shm_store._LIB is not None else "none",
+        "scheduler (libsched.so)": "native" if native_sched._lib is not None else "python",
+        "wire codec (_specenc.so)": "native" if wirefmt.native_active() else "python",
+        "event loop (_evloop.so)": "native" if evloop.module() is not None else "python"}
+    print("[runtime] init " + json.dumps(row))
+    n_cards = torch.cuda.device_count() if device == "cuda" else 1
+    _check(row["resources"].get("GPU") == n_cards,
+           f"init() counted {row['resources'].get('GPU')} GPUs where torch sees {n_cards}")
+    pids = set()
+    try:
+        @ray_tpu_torch.remote
+        def noop():
+            return None
+
+        @ray_tpu_torch.remote
+        class Counter:
+            def __init__(self):
+                self.n = 0
+
+            def inc(self):
+                self.n += 1
+                return self.n
+
+            def pid(self):
+                return os.getpid()
+
+        # Steady state: a first batch of each, untimed, warms the pool,
+        # the lease cache and the actor's direct path.
+        warm = calls // 5
+        ray_tpu_torch.get([noop.remote() for _ in range(warm)], timeout=120)
+        t = time.perf_counter()
+        out = ray_tpu_torch.get([noop.remote() for _ in range(calls)], timeout=300)
+        row["tasks_per_s"] = calls / (time.perf_counter() - t)
+        _check(out == [None] * calls, "a no-op task returned something")
+        counter = Counter.remote()
+        pids.add(ray_tpu_torch.get(counter.pid.remote(), timeout=120))
+        ray_tpu_torch.get([counter.inc.remote() for _ in range(warm)], timeout=120)
+        t = time.perf_counter()
+        out = ray_tpu_torch.get([counter.inc.remote() for _ in range(calls)], timeout=300)
+        row["actor_calls_per_s"] = calls / (time.perf_counter() - t)
+        _check(out == list(range(warm + 1, warm + calls + 1)),
+               "the actor's calls ran out of order")
+
+        # The GPU task: the flash forward on the leased card, against the
+        # driver's own launch on the same inputs.
+        b, t_, h, d = _RUNTIME_FLASH_SHAPE
+        gen = torch.Generator(device=device).manual_seed(14)
+        q, k, v = (torch.randn((b, t_, h, d), generator=gen, device=device,
+                               dtype=torch.float32).to(torch.bfloat16) for _ in range(3))
+        # The driver's own launch is the comparison, not the path: its
+        # counts are put back as they were.
+        from ray_tpu_torch.ops import _kernels
+
+        saved = [(w, w.launches, w.launches_fp32, w.copies)
+                 for w in (getattr(_kernels, name) for name in _COPYING)]
+        with torch.inference_mode():
+            ref = flash_attention(q, k, v, causal=True)
+        for w, n, n_fp32, copies in saved:
+            w.launches, w.launches_fp32, w.copies = n, n_fp32, copies
+        flash = ray_tpu_torch.remote(num_gpus=1, num_returns=2)(_flash_task)
+        # Twice: the first call starts a worker (an interpreter, torch,
+        # CUDA, the kernel library), the second finds it warm.
+        row["gpu_task_s"], row["gpu_task_to_start_s"] = [], []
+        counts = {"launches": dict.fromkeys(_KERNELS, 0), "copies": dict.fromkeys(_COPYING, 0)}
+        for _ in range(2):
+            t, t_wall = time.perf_counter(), time.time()
+            out_ref, meta_ref = flash.remote(*(ray_tpu_torch.put(x) for x in (q, k, v)))
+            out = ray_tpu_torch.get(out_ref, timeout=300)
+            row["gpu_task_s"].append(time.perf_counter() - t)
+            meta = ray_tpu_torch.get(meta_ref, timeout=60)
+            pids.add(meta.pop("pid"))
+            # From the submit to the task's first line: the worker's
+            # start (first call) and the inputs' arrival on its card.
+            row["gpu_task_to_start_s"].append(meta.pop("started") - t_wall)
+            _check(out.device.type == device,
+                   f"the GPU task's result arrived on {out.device.type}, not {device}")
+            _check(meta["input_device"] == device,
+                   f"the GPU task's inputs arrived on {meta['input_device']}")
+            _check(torch.equal(out, ref), "the GPU task's flash forward differs from the "
+                                          "driver's launch on the same inputs")
+            _check(meta["visible"] == "0" and meta["device_count"] == (device == "cuda"),
+                   f"the GPU task saw CUDA_VISIBLE_DEVICES={meta['visible']!r} and "
+                   f"{meta['device_count']} devices")
+            _check(meta["launches"]["flash_fwd"] == (device == "cuda"),
+                   f"the GPU task launched flash_fwd {meta['launches']['flash_fwd']} times")
+            counts = _add_counts(counts, meta)
+        row["gpu_task"] = {"bitwise_equal": True, "launches": counts["launches"]}
+        chipless = ray_tpu_torch.get(ray_tpu_torch.remote(_chipless_task).remote(),
+                                     timeout=120)
+        pids.add(chipless.pop("pid"))
+        _check(chipless == {"visible": "", "device_count": 0},
+               f"a chipless task saw {chipless}")
+
+        # Put and get a tensor on the card and one on the host, three
+        # rounds each (a round whose put lands on store pages not yet
+        # touched pays their first faults).
+        row["put_get"] = {}
+        for where in dict.fromkeys((device, "cpu")):
+            x = torch.randint(-2 ** 31, 2 ** 31 - 1, (put_bytes // 4,), dtype=torch.int32,
+                              generator=torch.Generator(device=where).manual_seed(1),
+                              device=where)
+            sync = torch.cuda.synchronize if where == "cuda" else (lambda: None)
+            if where == "cuda":
+                # The put's first step alone: the copy to host memory.
+                sync()
+                t = time.perf_counter()
+                x.to("cpu")
+                row["put_get_d2h_ms"] = (time.perf_counter() - t) * 1e3
+            rounds = []
+            for _ in range(3):
+                sync()
+                t = time.perf_counter()
+                ref = ray_tpu_torch.put(x)
+                put_s = time.perf_counter() - t
+                t = time.perf_counter()
+                y = ray_tpu_torch.get(ref, timeout=300)
+                sync()
+                get_s = time.perf_counter() - t
+                _check(y.device.type == where and torch.equal(x, y),
+                       f"the {where} tensor came back changed (on {y.device.type})")
+                rounds.append((put_s, get_s))
+                del y, ref
+            put_s, get_s = min(r[0] for r in rounds), min(r[1] for r in rounds)
+            row["put_get"][where] = {
+                "bytes": put_bytes, "put_ms": [r[0] * 1e3 for r in rounds],
+                "get_ms": [r[1] * 1e3 for r in rounds],
+                "best_put_GB_per_s": put_bytes / put_s / 1e9,
+                "best_get_GB_per_s": put_bytes / get_s / 1e9}
+            del x
+
+        # The GPU actor: phase 4's engine on phase 4's weights, passed as
+        # object refs; the same 8 prompts give phase 4's tokens.
+        serve = shared["serve"]
+        param_refs = tree_map(ray_tpu_torch.put, serve["params"])
+        n_new = len(serve["tokens"][0])
+        Engine = ray_tpu_torch.remote(num_gpus=1)(_EngineActor)
+        t = time.perf_counter()
+        actor = Engine.remote(param_refs, serve["model"], device)
+        # Twice: the first serve is the process's first (cold kernels and
+        # handles), the second is warm. Both give phase 4's tokens.
+        runs = []
+        for _ in range(2):
+            tokens, times, ainfo = ray_tpu_torch.get(
+                actor.serve.remote(serve["prompts"], n_new), timeout=600)
+            runs.append(times)
+            for i, (got, want) in enumerate(zip(tokens, serve["tokens"])):
+                _check(got == want, f"the engine actor's request {i} differs from "
+                                    f"phase 4's: {got} vs {want}")
+        row["engine_actor_s"] = time.perf_counter() - t
+        pids.add(ainfo["pid"])
+        _check(ainfo["param_devices"] == [device],
+               f"the actor's weights arrived on {ainfo['param_devices']}")
+        _check(ainfo["visible"] == "0", f"the actor saw CUDA_VISIBLE_DEVICES="
+                                       f"{ainfo['visible']!r}")
+        row["engine_actor"] = {
+            "requests": len(tokens), "tokens_equal_to_phase_4": True,
+            "decode_tokens_per_s": [r["decode_tokens_per_s"] for r in runs],
+            "ttft_s_median": [r["ttft_s_median"] for r in runs],
+            "phase_4_decode_tokens_per_s": serve["row"].get("decode_tokens_per_s"),
+            "phase_4_ttft_s_median": serve["row"].get("ttft_s_median"),
+            "launches": ainfo["launches"]}
+        counts = _add_counts(counts, ainfo)
+        ray_tpu_torch.kill(actor)
+        pids |= _cluster_processes(os.getpid()) - earlier
+    finally:
+        ray_tpu_torch.shutdown()
+    deadline = time.time() + 10
+    while _live(pids) and time.time() < deadline:
+        time.sleep(0.1)
+    row["pids_left_after_shutdown"] = _live(pids)
+    _check(not row["pids_left_after_shutdown"],
+           f"processes left after shutdown(): {row['pids_left_after_shutdown']}")
+    print("[runtime] " + json.dumps(row))
+    return {**counts, "row": row}
+
+
 # The main path's kernels as the kernels line names them: (the wrapper in
 # ray_tpu_torch.ops._kernels that launches it, whether it is the fp32
 # kernel, the source under ray_tpu_torch/csrc that holds it, the line of
@@ -2796,9 +3145,9 @@ def main() -> int:
 
     # Each path of the main path with the counts set to 0 just before it
     # and read just after; the paths that train must launch every kernel
-    # (they take fp32 and bf16 steps). The ranks of phases 7 and 9 count
-    # their own launches and copies, which the phase returns, and they are
-    # added.
+    # (they take fp32 and bf16 steps). The ranks of phases 7, 9 and 13 and
+    # the workers of phase 14 count their own launches and copies, which
+    # the phase returns, and they are added.
     shared = {}
     paths = (("forward", inference(phase_forward), False),
              ("serve", inference(lambda: phase_serve(shared)), False),
@@ -2810,7 +3159,8 @@ def main() -> int:
              ("llm_parallel", lambda: phase_llm_parallel(shared), False),
              ("async_llm", lambda: phase_async_llm(shared), False),
              ("rllib", lambda: phase_rllib(shared), False),
-             ("rllib_more", lambda: phase_rllib_more(shared), False))
+             ("rllib_more", lambda: phase_rllib_more(shared), False),
+             ("runtime", lambda: phase_runtime(shared), False))
     launches = dict.fromkeys(_KERNELS, 0)
     for name, run, must_launch in paths:
         for w in wrappers:
@@ -2818,7 +3168,7 @@ def main() -> int:
         result = run()
         total = {"launches": _launch_counts(),
                  "copies": {w.__name__: w.copies for w in wrappers}}
-        if name in ("parallel", "train_backend", "rllib_more"):
+        if name in ("parallel", "train_backend", "rllib_more", "runtime"):
             total = _add_counts(total, result)
         counted, copies = total["launches"], total["copies"]
         print(f"[{name}] launches " + json.dumps(counted))
@@ -2866,4 +3216,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # Run as the module ``chip_smoke``, not as ``__main__``: phase 14's
+    # workers then import its task and actor classes by reference, where
+    # cloudpickle would copy ``__main__``'s by value (and torch's backend
+    # modules, which they reach, cannot be copied).
+    import chip_smoke
+
+    sys.exit(chip_smoke.main())

@@ -35,9 +35,9 @@ Callers hand their requests over through a queue that the thread drains
 before each step, not through the engine lock, which the thread takes
 step after step.
 
-Not here: disaggregated prefill/decode and the engine's trace spans wait
-for the runtime (ROADMAP.md §1 item 6); orbax checkpoint directories
-raise (the port reads .npz only; ROADMAP.md §3).
+Not here: disaggregated prefill/decode and the engine's trace spans come
+on the task/actor core in ROADMAP.md §1 item 6c; orbax checkpoint
+directories raise (the port reads .npz only; ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ from ray_tpu_torch.llm.kv_pages import KVPageError
 from ray_tpu_torch.llm.tokenizer import load_tokenizer
 from ray_tpu_torch.models import transformer as tfm
 
-_RUNTIME = "waits for the runtime core (ROADMAP.md §1 item 6)"
+_RUNTIME = "waits for ROADMAP.md §1 item 6c (the KV handoff on the task/actor core)"
 
 # Top-k width of the device logprob output (vLLM max_logprobs).
 MAX_LOGPROBS = 20
@@ -1612,8 +1612,8 @@ class AsyncLLMEngine:
         ROADMAP.md §1 item 6c."""
         raise NotImplementedError(
             "generate_from_handoff needs LLMEngine.add_handoff_request "
-            "(disaggregated prefill/decode), which waits for the runtime core "
-            "(ROADMAP.md §1 item 6c)")
+            "(disaggregated prefill/decode), which waits for ROADMAP.md §1 "
+            "item 6c (the KV handoff on the task/actor core)")
 
 
 def _load_checkpoint(path: str, device):

@@ -9,8 +9,8 @@ What needs no runtime is here: the configs, checkpoints and their top-k
 manager, the session a loop reads, the backend that sets up a worker's
 process group, and the gradient and parameter sync of a data-parallel
 loop. ``JaxTrainer``'s counterpart and its worker group start workers as
-actors, and ``report`` is an actor call: they wait for the runtime core
-(ROADMAP.md §1 item 6).
+actors, and ``report`` is an actor call: they come on the task/actor
+core (``ray_tpu_torch.init`` / ``remote``) in ROADMAP.md §1 item 6c.
 """
 
 from ray_tpu_torch.train import torch_utils

@@ -2,8 +2,9 @@
 dataset shards and the process group (port of ray_tpu/train/session.py).
 
 ``TrainSession.report`` sends metrics to the run's state actor in the
-reference, an actor call: it waits for the runtime core (ROADMAP.md §1
-item 6) and raises NotImplementedError until then. Everything else a
+reference, an actor call to the run's state actor, which comes with
+Train's trainer and worker group on the task/actor core (ROADMAP.md §1
+item 6c); it raises NotImplementedError until then. Everything else a
 training loop reads from its session works.
 """
 
@@ -14,7 +15,8 @@ from typing import Any, Optional
 
 from ray_tpu_torch.train.checkpoint import Checkpoint
 
-_RUNTIME = "waits for the runtime core (ROADMAP.md §1 item 6)"
+_RUNTIME = ("waits for Train's trainer and worker group on the task/actor core "
+            "(ROADMAP.md §1 item 6c)")
 
 _session: "TrainSession | None" = None
 
@@ -25,7 +27,7 @@ class TrainSession:
         rank: int,
         world_size: int,
         local_rank: int,
-        collector=None,  # the run's state actor (with the runtime core)
+        collector=None,  # the run's state actor (with the trainer, item 6c)
         experiment_name: str = "train_run",
         latest_checkpoint: Checkpoint | None = None,
         dataset_shards: dict[str, Any] | None = None,

@@ -4,8 +4,9 @@ line, phase 6's routing and f32 GEMM helpers, phase 7's leaf-wise
 comparison, shard slicing and the launch counts its ranks report, and
 phase 8's merged-LoRA reference, token check and JSON prefix check,
 phase 9's resumed-run check and data-parallel limit, phase 10's
-reading of a pipeline rank's failure, and phases 11-13 run on the CPU
-(phase 13's two-agent CartPole against two CartPoles)."""
+reading of a pipeline rank's failure, and phases 11-14 run on the CPU
+(phase 13's two-agent CartPole against two CartPoles; phase 14's
+workers' launch counts reach the kernels line)."""
 
 import math
 
@@ -565,3 +566,37 @@ def test_async_phase_runs_on_the_cpu(capsys):
     assert max(row["arriving"]["steps_per_request"]) <= 32
     assert row["deadline"]["raised_where"] == ["llm_decode"] * 2
     assert "[async_llm] " in capsys.readouterr().out
+
+
+def test_runtime_phase_runs_on_the_cpu(capsys):
+    """Phase 14 end to end on the CPU (50 calls, 1 MiB tensors, a tiny
+    model standing in for phase 4's): its checks pass, its workers report
+    their counts (none launches a kernel on the CPU) and those counts are
+    added into the kernels line as the ranks' are."""
+    import dataclasses
+
+    from ray_tpu_torch import models
+    from ray_tpu_torch.llm import LLMConfig, LLMEngine, SamplingParams
+
+    cfg = dataclasses.replace(models.tiny(vocab_size=512, max_seq_len=1024), dtype="float32")
+    params = models.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    eng = LLMEngine(LLMConfig(model=cfg, max_num_seqs=8, max_seq_len=1024, tokenizer="byte"),
+                    params, device="cpu")
+    words = "the engine answers every request with thirty two tokens "
+    prompts = [(words * 5)[:n] for n in (11, 24, 30, 50, 60, 100, 200, 240)]
+    outs = eng.generate(prompts, SamplingParams(max_tokens=8, ignore_eos=True))
+    shared = {"serve": {"params": params, "prompts": prompts, "model": cfg, "row": {},
+                        "tokens": [o.token_ids for o in outs]}}
+    out = chip_smoke.phase_runtime(shared, device="cpu", small=True)
+    row = out["row"]
+    assert row["resources"] == {"CPU": row["resources"]["CPU"], "GPU": 1.0}
+    assert row["engine_actor"]["tokens_equal_to_phase_4"]
+    assert row["gpu_task"]["bitwise_equal"] and row["pids_left_after_shutdown"] == []
+    assert set(out["launches"]) == set(chip_smoke._KERNELS)
+    assert set(out["launches"].values()) == {0}
+    total = {"launches": dict.fromkeys(chip_smoke._KERNELS, 3),
+             "copies": dict.fromkeys(chip_smoke._COPYING, 0)}
+    assert chip_smoke._add_counts(total, out)["launches"] == total["launches"]
+    worker = {"launches": dict(out["launches"], flash_fwd=1), "copies": out["copies"]}
+    assert chip_smoke._add_counts(total, worker)["launches"]["flash_fwd"] == 4
+    assert "[runtime] " in capsys.readouterr().out

@@ -20,11 +20,20 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import ray_tpu_torch
+CORE = ("ids", "serialization", "shm_store", "external_storage", "dataplane",
+        "bulk_transfer", "objcensus", "config", "native_build", "wirefmt",
+        "task_spec", "retry", "evloop", "rpc", "faultinject", "scheduler",
+        "native_sched", "resource_syncer", "gcs", "gcs_store",
+        "gcs_persistence", "head_shards", "runtime", "worker",
+        "worker_context", "direct", "node_agent", "zygote", "runtime_env",
+        "hermetic", "cgroup", "memory_monitor", "events", "traceplane",
+        "profplane", "alertplane", "tsdb", "forensics", "lockwitness",
+        "log_monitor", "log_utils", "usage_stats")
 names = [m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__,
                                                "ray_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-missing = sorted({"ray_tpu_torch.ops.moe", "ray_tpu_torch.ops.optim",
+missing = sorted(({"ray_tpu_torch.ops.moe", "ray_tpu_torch.ops.optim",
                   "ray_tpu_torch.ops.ring_attention", "ray_tpu_torch.parallel._spawn",
                   "ray_tpu_torch.parallel.multislice", "ray_tpu_torch.llm.kv_pages",
                   "ray_tpu_torch.llm.lora", "ray_tpu_torch.llm.guided",
@@ -45,6 +54,13 @@ missing = sorted({"ray_tpu_torch.ops.moe", "ray_tpu_torch.ops.optim",
                   "ray_tpu_torch.rllib.algorithms.appo",
                   "ray_tpu_torch.rllib.algorithms.dreamerv3",
                   "ray_tpu_torch.rllib.env.multi_agent"}
+                 | {"ray_tpu_torch._private." + m for m in CORE}
+                 | {"ray_tpu_torch." + m for m in (
+                     "api", "actor", "remote_function", "generator",
+                     "accelerators", "accelerators.accelerator",
+                     "accelerators.cuda", "util", "util.placement_group",
+                     "util.scheduling_strategies", "util.serialization",
+                     "util.tracing", "util.actor_pool", "util.queue")})
                  - set(sys.modules))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "ray_tpu"
@@ -59,11 +75,12 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, missing, bad = out.stdout.split(" ", 2)
-    assert int(n_modules) >= 58
+    assert int(n_modules) >= 114
     assert missing == "[]"  # the MoE ops, the optimizers, the parallel slice,
     # the LLM plane's paged KV, LoRA, guided and pipeline modules, the
     # Train backend, RLlib (multi-agent and DreamerV3 too), Tune's
-    # Trainable and the exceptions were imported
+    # Trainable, the exceptions and the task/actor core (_private, the
+    # API, the accelerator managers, util) were imported
     assert bad.strip() == "[]"
 
 

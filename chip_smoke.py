@@ -169,14 +169,51 @@ Phases, in order; any failed check exits non-zero:
                4's 8 prompts: phase 4's tokens (decode tokens/s beside
                phase 4's). After shutdown() no process the cluster started
                is left.
+ 15. dag     — the main path, part 13: compiled DAGs, channels, Train's
+               trainer and util.collective on the core, with two
+               num_gpus=0.5 actors sharing this card (both see it as
+               cuda:0). (a) A 256 MiB bf16 tensor drawn by actor A from a
+               seed, handed to actor B and on to the driver over two
+               with_tensor_transport("device") edges (CUDA IPC: a
+               descriptor on the host ring, a device-to-device copy by
+               the reader): 20 executes, each bit for bit the driver's own
+               draw; ms per execute beside 6 executes of the same DAG on
+               the default shm transport (bit for bit too); the device
+               edge's meta message under 64 KiB. Then B's work() keeps
+               the card reading each received tensor for 32 passes after
+               it returns, with 3 executes in flight: 20 results over a
+               second device edge, each bit for bit the driver's own
+               work() on its own draw (a reader whose copy could land in
+               memory those kernels still read would differ). (b) Disaggregated
+               serving: a prefill engine on A and a decode engine on B
+               (phase 4's configuration, weights rebuilt from phase 4's
+               seed, paged bf16 KV in 16-token pages), the DAG
+               input -> prefill_detached -> device edge -> decode
+               (add_handoff_request, stepped to its end) -> driver serves
+               phase 4's 8 prompts one at a time, greedy, 32 tokens:
+               phase 4's tokens; per request the time to first token,
+               to the last token, the handoff's bytes and ms, beside the
+               same DAG over shm. (d) util.collective between A and B:
+               allreduce (sum), allgather and broadcast of 1M f32 on the
+               card give CUDA tensors equal to numpy's. (c) TorchTrainer
+               (ScalingConfig(num_workers=1, use_gpu=True), an NCCL group
+               of one) runs phase 9 (a)'s loop on its worker (6 bf16
+               steps at B=8, T=1024, a report each, a checkpoint with
+               step 3's): its losses equal phase 9 (a)'s bit for bit,
+               Result.metrics are the 6th step's, and a second fit
+               resumed from the step-3 checkpoint gives steps 4-6 bit for
+               bit; each kernel launches once per layer per step in the
+               worker; the worker's step host ms beside phase 9's. After
+               shutdown() no process the cluster started is left.
 
-Each path of phases 3-14 is driven with the kernels' launch and copy
+Each path of phases 3-15 is driven with the kernels' launch and copy
 counts set to 0 just before it and read just after; launches made in
-phase 2 do not count, those of the ranks of phases 7, 9 and 13 and of
-phase 14's workers do. No path may make the
+phase 2 do not count, those of the ranks of phases 7, 9 and 13, of
+phase 14's workers and of phase 15's trainer worker (its last report
+carries its counts) do. No path may make the
 wrappers copy an input (the model's q, k, v are views that TMA reads in
 place, on each rank's shard too). The kernels line sums the launches of
-phases 3-14, one entry for each kernel: a wrapper
+phases 3-15, one entry for each kernel: a wrapper
 sends bf16/fp16 to a wgmma kernel and fp32 to a kernel of its own
 (every product in 3xTF32 on the tensor cores), and counts the two apart.
 Phase 2 also requires two launches of the fp32 forward and of the fp32
@@ -186,8 +223,8 @@ kernel alone and the fp32 dQ + dK/dV pair to take no longer than SDPA's
 whole backward at GPT-2 124M's training shape.
 
 Phases 11, 12 and 13 reach no Pallas kernel's counterpart (the LLM
-runner, RLlib's MLPs and DreamerV3's GRU and MLPs launch none); their
-launches are counted all the same.
+runner, RLlib's MLPs and DreamerV3's GRU and MLPs launch none), nor do
+phase 15's engines and edges; their launches are counted all the same.
 
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
@@ -1641,11 +1678,28 @@ def _gpt2_train_config(**kw):
                              ce_impl="fused", ce_accuracy=False, attn_impl="flash", **kw)
 
 
-def _step_batches(cfg, n, B, T):
+def _step_batches(cfg, n, B, T, device="cuda"):
     """``n`` batches of B x (T + 1) tokens, batch i from seed 100 + i."""
     return [{"tokens": torch.randint(
-        0, cfg.vocab_size, (B, T + 1), device="cuda",
-        generator=torch.Generator(device="cuda").manual_seed(100 + i))} for i in range(n)]
+        0, cfg.vocab_size, (B, T + 1), device=device,
+        generator=torch.Generator(device=device).manual_seed(100 + i))} for i in range(n)]
+
+
+def _dp_opt():
+    """Phase 9's optimizer: FusedClipAdamW at bench.py's settings."""
+    from ray_tpu_torch.ops.optim import FusedClipAdamW
+
+    return FusedClipAdamW(learning_rate=3e-4, weight_decay=0.1, clip_norm=1.0)
+
+
+def _dp_fresh(cfg, opt, seed, device):
+    """Parameters from ``seed`` (a generator on ``device``) and their
+    optimizer state."""
+    from ray_tpu_torch import models
+
+    params = models.init_params(torch.Generator(device=device).manual_seed(seed), cfg,
+                                device=device)
+    return params, opt.init(params)
 
 
 def _dp_steps(params, opt_state, opt, batches, cfg):
@@ -1751,20 +1805,17 @@ def phase_train_backend(shared: dict):
     from ray_tpu_torch import models, train
     from ray_tpu_torch.models.transformer import loss_and_grads
     from ray_tpu_torch.ops import _kernels
-    from ray_tpu_torch.ops.optim import FusedClipAdamW
     from ray_tpu_torch.parallel import _spawn
     from ray_tpu_torch.train.session import TrainSession, set_session
 
     B, T = 8, 1024
     cfg = _gpt2_train_config()
-    opt = FusedClipAdamW(learning_rate=3e-4, weight_decay=0.1, clip_norm=1.0)
+    opt = _dp_opt()
     batches = _step_batches(cfg, 6, B, T)
     kernels = (_kernels.flash_fwd, _kernels.flash_bwd_dq, _kernels.flash_bwd_dkv)
 
     def fresh(seed):
-        params = models.init_params(torch.Generator(device="cuda").manual_seed(seed), cfg,
-                                    device="cuda")
-        return params, opt.init(params)
+        return _dp_fresh(cfg, opt, seed, "cuda")
 
     # (a) World size 1 on NCCL, set up by the backend.
     row = {}
@@ -1798,6 +1849,10 @@ def phase_train_backend(shared: dict):
            f"{9 * cfg.n_layers} each")
     _check(bitwise, f"steps 4-6 from the checkpoint differ from the uninterrupted run: "
                     f"{again} vs {losses[3:]}")
+    # Phase 15's trainer runs this loop on a worker: its steps must give
+    # these losses.
+    shared["train_backend"] = {"losses": losses,
+                               "step_ms_median": row["step_ms_median"]}
 
     # (b) Two gloo ranks on this card, half of the batch each, in fp32.
     f32 = _gpt2_train_config(dtype="float32")
@@ -2001,10 +2056,28 @@ def phase_async_llm(shared: dict, device: str = "cuda"):
 
     eng.step = step
 
+    # Where a request's steps went before its first: the engine's step
+    # count when the caller handed it over (_submit) and when the stepping
+    # thread queued it (_admit_inbox, under the engine lock).
+    handed_at, queued_at = {}, {}
+    real_submit, real_admit_inbox = aeng._submit, aeng._admit_inbox
+
+    def submit(req, sink, deadline):
+        handed_at[req.request_id] = eng._step_count
+        real_submit(req, sink, deadline)
+
+    def admit_inbox():
+        real_admit_inbox()
+        for r in eng.waiting:
+            queued_at.setdefault(r.request_id, eng._step_count)
+
+    aeng._submit, aeng._admit_inbox = submit, admit_inbox
+
     async def caller(prompt, delay=0.0):
         """One caller's request, streamed: its output, the seconds to its
-        first token and to its end, and the engine steps from its
-        submission to its first and its last token."""
+        first token and to its end, the engine steps from its submission
+        to its first and its last token, and to its hand-over and its
+        queueing."""
         if delay:
             await asyncio.sleep(delay)
         t_sub, s_sub = time.time(), eng._step_count
@@ -2017,7 +2090,9 @@ def phase_async_llm(shared: dict, device: str = "cuda"):
         return {"out": out, "t_first": t_first, "t_end": time.time(),
                 "ttft_s": t_first - t_sub,
                 "steps_to_first": first_at[out.request_id] - s_sub,
-                "steps": done_at[out.request_id] - s_sub}
+                "steps": done_at[out.request_id] - s_sub,
+                "steps_to_hand_over": handed_at[out.request_id] - s_sub,
+                "steps_to_queue": queued_at[out.request_id] - s_sub}
 
     def summary(got):
         t0 = min(g["t_first"] - g["ttft_s"] for g in got)
@@ -2028,6 +2103,8 @@ def phase_async_llm(shared: dict, device: str = "cuda"):
                 "ttft_s_max": max(ttft),
                 "steps_to_first_token": [g["steps_to_first"] for g in got],
                 "steps_per_request": [g["steps"] for g in got],
+                "steps_to_hand_over": [g["steps_to_hand_over"] for g in got],
+                "steps_to_queue": [g["steps_to_queue"] for g in got],
                 "decode_tokens_per_s": sum(len(g["out"].token_ids) - 1 for g in got)
                 / max(t_end - t_first, 1e-9),
                 "wall_s": t_end - t0}
@@ -2071,7 +2148,9 @@ def phase_async_llm(shared: dict, device: str = "cuda"):
     _check(lengths == [n_new] * len(enc), f"arriving callers got {lengths} tokens")
     _check(max(row["arriving"]["steps_per_request"]) <= n_new,
            f"arriving callers waited to be admitted: "
-           f"{row['arriving']['steps_per_request']} steps for {n_new} tokens")
+           f"{row['arriving']['steps_per_request']} steps for {n_new} tokens "
+           f"(to the hand-over {row['arriving']['steps_to_hand_over']}, to the "
+           f"queue {row['arriving']['steps_to_queue']})")
 
     # One streamed request: its increments, joined, are its output.
     async def streamed():
@@ -3072,6 +3151,461 @@ def phase_runtime(shared: dict, device: str = "cuda", small: bool = False):
     return {**counts, "row": row}
 
 
+# Phase 15 (dag): compiled DAGs, the CUDA IPC device edge, disaggregated
+# serving, Train's trainer and util.collective on the task/actor core.
+_DAG_BYTES = 256 << 20
+_DAG_EXECUTES = 20
+_DAG_SHM_EXECUTES = 6  # the first 4 fill the ring: first touches of its pages
+_DAG_META_LIMIT = 64 << 10  # a device edge's descriptor, not its tensors
+_DAG_COLLECTIVE_N = 1 << 20
+_DAG_N_NEW = 32
+# (a)'s in-flight check: passes of work() over each received tensor, and
+# the executes in flight at once (under the rings' 4 slots).
+_DAG_WORK_PASSES = 32
+_DAG_IN_FLIGHT = 3
+
+
+def _seeded_tensor(seed, nbytes, device):
+    """A bf16 tensor of ``nbytes`` drawn from ``seed`` on ``device``: the
+    same bits wherever it is drawn on the same kind of device."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(nbytes // 2, generator=gen, device=device, dtype=torch.bfloat16)
+
+
+def _dag_work(x):
+    """Phase 15 (a)'s consumer work: _DAG_WORK_PASSES passes over ``x``,
+    each reading all of it, queued on the current stream (the caller
+    returns long before the card is done)."""
+    acc = x.float()
+    for _ in range(_DAG_WORK_PASSES):
+        acc.mul_(0.5).add_(x)
+    return acc
+
+
+def _collective_input(seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(_DAG_COLLECTIVE_N, generator=gen, device=device)
+
+
+class _DagActor:
+    """Phase 15's actor (0.5 GPU, two of them share the card): an end of
+    the device edge, then a prefill or a decode engine of phase 4's
+    configuration (its weights rebuilt from phase 4's seed, paged bf16 KV
+    in 16-token pages), then a rank of a collective group."""
+
+    def __init__(self, device, nbytes):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.device, self.nbytes, self.eng = device, nbytes, None
+
+    def info(self):
+        import os
+
+        return {"pid": os.getpid(), "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device_count": torch.cuda.device_count()}
+
+    def make(self, seed):
+        return _seeded_tensor(seed, self.nbytes, self.device)
+
+    def relay(self, x):
+        if x.device.type != self.device:
+            raise RuntimeError(f"the relay received a tensor on {x.device}")
+        return x
+
+    def work(self, x):
+        if x.device.type != self.device:
+            raise RuntimeError(f"work() received a tensor on {x.device}")
+        return _dag_work(x)
+
+    def load_engine(self, model):
+        from ray_tpu_torch.llm import LLMConfig, LLMEngine
+
+        self.eng = LLMEngine(LLMConfig(model=model, max_num_seqs=8, max_seq_len=1024,
+                                       tokenizer="byte", kv_page_size=16),
+                             device=self.device)
+        return True
+
+    def prefill(self, prompt):
+        from ray_tpu_torch.llm import SamplingParams
+
+        return self.eng.prefill_detached(
+            prompt, SamplingParams(max_tokens=_DAG_N_NEW, ignore_eos=True))
+
+    def decode(self, record):
+        """Decode a prefill record to its end. Returns the tokens and the
+        times on this host's clock."""
+        from ray_tpu_torch.llm import SamplingParams
+
+        t_recv = time.time()
+        self.eng.add_handoff_request("handoff", record, SamplingParams(
+            max_tokens=_DAG_N_NEW, ignore_eos=True))
+        out = []
+        while self.eng.has_unfinished():
+            out += self.eng.step()
+        return {"tokens": out[0].token_ids, "t_recv": t_recv, "t_done": time.time(),
+                "sealed_at": record["sealed_at"], "kv_on": record["k"].device.type,
+                "bytes": sum(record[k].numel() * record[k].element_size() for k in "kv"),
+                "pages_left": self.eng.kv_alloc.num_in_use}
+
+    def collective(self, rank, seed):
+        """allreduce (sum), allgather and broadcast of a tensor on this
+        actor's device, in a group of the two actors."""
+        from ray_tpu_torch.util import collective
+
+        g = collective.init_collective_group(2, rank, group_name="chip_smoke_dag")
+        ms = {}
+        try:
+            x = _collective_input(seed + rank, self.device)
+            g.barrier()  # both ranks in the group before the timed ops
+            for op, fn in (("allreduce", lambda: g.allreduce(x)),
+                           ("allgather", lambda: g.allgather(x)),
+                           ("broadcast", lambda: g.broadcast(
+                               x if rank == 0 else torch.zeros_like(x), src=0))):
+                t = time.perf_counter()
+                ms[op] = (fn(), (time.perf_counter() - t) * 1e3)
+        finally:
+            collective.destroy_collective_group("chip_smoke_dag")
+        (total, _), (gathered, _), (bcast, _) = ms.values()
+        outs = [total, *gathered, bcast]
+        return {"devices": sorted({t.device.type for t in outs}),
+                "ms": {op: v[1] for op, v in ms.items()},
+                "sum": total.cpu().numpy(), "gather": [t.cpu().numpy() for t in gathered],
+                "bcast": bcast.cpu().numpy()}
+
+
+def _dag_train_setup(small):
+    """Phase 9 (a)'s configuration (bench.py's GPT-2 124M, B=8, T=1024), or
+    for the CPU test a tiny model at B=2, T=32."""
+    from ray_tpu_torch import models
+
+    if small:
+        return models.tiny(vocab_size=512, max_seq_len=64, attn_impl="flash"), 2, 32
+    return _gpt2_train_config(), 8, 1024
+
+
+def _dag_train_loop(config):
+    """Phase 15 (c)'s train_loop_per_worker: phase 9 (a)'s loop on the
+    trainer's worker. Six steps from seed 0's state (or steps 4-6 from
+    the checkpoint at ``config["resume_from"]``, restored into seed 1's
+    state as phase 9 restores it), a report each step, a checkpoint with
+    step 3's report. Each report carries this worker's kernel counts."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.train import torch_utils
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name in _COPYING:
+        w = getattr(_kernels, name)
+        w.launches = w.launches_fp32 = w.copies = 0
+    device = config["device"]
+    cfg, B, T = _dag_train_setup(config["small"])
+    opt = _dp_opt()
+    batches = _step_batches(cfg, 6, B, T, device)
+    if config.get("resume_from"):
+        p2, s2 = _dp_fresh(cfg, opt, 1, device)
+        state = train.Checkpoint(config["resume_from"]).load_pytree(
+            {"params": p2, "opt_state": s2})
+        params, opt_state, first = state["params"], state["opt_state"], 3
+    else:
+        params, opt_state = _dp_fresh(cfg, opt, 0, device)
+        params = torch_utils.sync_model_params(params)
+        first = 0
+    for i in range(first, 6):
+        params, opt_state, losses, step_ms = _dp_steps(params, opt_state, opt,
+                                                       [batches[i]], cfg)
+        ckpt = None
+        if i == 2:
+            staged = train.make_temp_checkpoint_dir()
+            train.Checkpoint(staged).save_pytree({"params": params, "opt_state": opt_state})
+            ckpt = train.Checkpoint(staged)
+        train.report({"loss": losses[0], "step": i + 1, "step_ms": step_ms[0],
+                      **_worker_counts()}, checkpoint=ckpt)
+
+
+def _dag_train_reference(small, device):
+    """Phase 9 (a)'s six losses in this process (the CPU test's stand-in
+    for phase 9): a session of world size 1, no process group."""
+    from ray_tpu_torch.train.session import TrainSession, set_session
+
+    cfg, B, T = _dag_train_setup(small)
+    opt = _dp_opt()
+    set_session(TrainSession(0, 1, 0, experiment_name="chip_smoke_reference"))
+    try:
+        params, opt_state = _dp_fresh(cfg, opt, 0, device)
+        _, _, losses, step_ms = _dp_steps(params, opt_state, opt,
+                                          _step_batches(cfg, 6, B, T, device), cfg)
+    finally:
+        set_session(None)
+    return {"losses": losses, "step_ms_median": statistics.median(step_ms[1:])}
+
+
+def _dag_in_flight(a, b, n, nbytes, device):
+    """Phase 15 (a)'s in-flight check: A's draw over a device edge to B,
+    whose work() leaves the card reading it after the call returns, and
+    B's result over a device edge to the driver, _DAG_IN_FLIGHT executes
+    in flight at once. Returns the seeds whose result differs from the
+    driver's own work() on its own draw, bit for bit."""
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import InputNode
+
+    with InputNode() as inp:
+        x = a.make.bind(inp).with_tensor_transport("device")
+        node = b.work.bind(x).with_tensor_transport("device")
+    dag = node.experimental_compile()
+    dag.ensure_compiled()
+    differ = []
+    try:
+        refs = [dag.execute(seed) for seed in range(min(_DAG_IN_FLIGHT, n))]
+        for seed in range(n):
+            out = ray_tpu_torch.get(refs[seed], timeout=300)
+            if seed + _DAG_IN_FLIGHT < n:
+                refs.append(dag.execute(seed + _DAG_IN_FLIGHT))
+            if not (out.device.type == device and torch.equal(
+                    out, _dag_work(_seeded_tensor(seed, nbytes, device)))):
+                differ.append(seed)
+            del out
+    finally:
+        dag.teardown()
+    return differ
+
+
+def _dag_ms(dag, seed, sync):
+    """One execute of ``dag`` to its result; (result, ms)."""
+    import ray_tpu_torch
+
+    sync()
+    t = time.perf_counter()
+    out = ray_tpu_torch.get(dag.execute(seed), timeout=300)
+    sync()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def phase_dag(shared: dict, device: str = "cuda", small: bool = False):
+    """Phase 15: compiled DAGs over the port's channels, on two 0.5-GPU
+    actors sharing this card. (a) a 256 MiB bf16 tensor over two CUDA IPC
+    device edges (actor A -> actor B -> driver), 20 executes bitwise
+    against the driver's own draw, beside the default shm transport; (b)
+    disaggregated serving: prefill engine -> device edge -> decode
+    engine, phase 4's prompts give phase 4's tokens; (d) util.collective
+    between the two actors; then (c) TorchTrainer runs phase 9 (a)'s
+    loop on a GPU worker, and a second fit resumes from its step-3
+    checkpoint. Returns the trainer worker's kernel counts and the row.
+    ``small`` (the CPU test): 1 MiB tensors, 4 executes, a tiny model."""
+    import os
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch.dag import CompiledDAG, InputNode
+
+    nbytes = (1 << 20) if small else _DAG_BYTES
+    n_exec = 4 if small else _DAG_EXECUTES
+    n_shm = 2 if small else _DAG_SHM_EXECUTES
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    serve = shared["serve"]
+    row = {}
+    earlier = _cluster_processes(os.getpid())
+    t_phase = time.perf_counter()
+    ray_tpu_torch.init(object_store_memory=512 << 20,
+                       **({} if device == "cuda" else {"num_gpus": 1}))
+    pids = set()
+    counts = {"launches": dict.fromkeys(_KERNELS, 0), "copies": dict.fromkeys(_COPYING, 0)}
+    try:
+        Actor = ray_tpu_torch.remote(num_gpus=0.5)(_DagActor)
+        a, b = Actor.remote(device, nbytes), Actor.remote(device, nbytes)
+        infos = ray_tpu_torch.get([a.info.remote(), b.info.remote()], timeout=300)
+        pids |= {i.pop("pid") for i in infos}
+        row["actors_s"] = time.perf_counter() - t_phase
+        want = {"visible": "0", "device_count": int(device == "cuda")}
+        _check(infos == [want, want], f"the two 0.5-GPU actors saw {infos}")
+
+        # (a) The device edge alone, beside the shm edge.
+        with InputNode() as inp:
+            x = a.make.bind(inp).with_tensor_transport("device")
+            node = b.relay.bind(x).with_tensor_transport("device")
+        dag = node.experimental_compile()
+        dag.ensure_compiled()
+        reader = dag._channels[dag._plan["output_chans"][0]]
+        _dag_ms(dag, 1000, sync)  # warm: the loops' first IPC maps
+        ms = []
+        for seed in range(n_exec):
+            out, t = _dag_ms(dag, seed, sync)
+            ms.append(t)
+            _check(out.device.type == device and torch.equal(
+                out, _seeded_tensor(seed, nbytes, device)),
+                f"the device edge's execute {seed} differs from the driver's draw")
+            del out
+        meta = reader.meta_bytes
+        dag.teardown()
+        differ = _dag_in_flight(a, b, n_exec, nbytes, device)
+        _check(not differ, f"with executes in flight, work()'s results of seeds "
+                           f"{differ} differ from the driver's")
+        with InputNode() as inp:
+            node = b.relay.bind(a.make.bind(inp))
+        shm = CompiledDAG(node, channel_capacity=nbytes + (1 << 20))
+        shm.ensure_compiled()
+        shm_ms = []
+        for seed in range(n_shm):
+            out, t = _dag_ms(shm, seed, sync)
+            shm_ms.append(t)
+            _check(out.device.type == device and torch.equal(
+                out, _seeded_tensor(seed, nbytes, device)),
+                f"the shm edge's execute {seed} differs from the driver's draw")
+            del out
+        shm.teardown()
+        row["edge"] = {"bytes": nbytes, "dtype": "bfloat16", "executes": n_exec,
+                       "bitwise_equal": True, "device_ms": ms,
+                       "device_ms_median": statistics.median(ms),
+                       "in_flight": {"executes": n_exec, "at_once": _DAG_IN_FLIGHT,
+                                     "work_passes": _DAG_WORK_PASSES,
+                                     "bitwise_equal": True},
+                       "shm_ms": shm_ms, "shm_ms_median": statistics.median(shm_ms),
+                       "shm_ms_ring_touched": shm_ms[4:],
+                       "meta_bytes_per_message": meta, "meta_limit": _DAG_META_LIMIT}
+        print("[dag] edge " + json.dumps(row["edge"]))
+        # On the card only the descriptor crosses the host; CPU tensors
+        # (the CPU test) cross as host bytes in the slot.
+        _check(device != "cuda" or (meta is not None and meta < _DAG_META_LIMIT),
+               f"the device edge's meta message took {meta} bytes")
+
+        # (b) Disaggregated serving: prefill engine -> decode engine.
+        model = "gpt2_small" if not small else serve["model"]
+        ray_tpu_torch.get([a.load_engine.remote(model), b.load_engine.remote(model)],
+                          timeout=600)
+        from ray_tpu_torch.llm.tokenizer import load_tokenizer
+
+        params, prompts, want_tokens = (serve[k] for k in ("params", "prompts", "tokens"))
+        enc = [load_tokenizer("byte").encode(p) for p in prompts]
+        served = {}
+        for edge in ("device", "shm"):
+            with InputNode() as inp:
+                rec = a.prefill.bind(inp)
+                if edge == "device":
+                    rec = rec.with_tensor_transport("device")
+                node = b.decode.bind(rec)
+            # The shm record carries the K/V pages: size for the longest.
+            d = CompiledDAG(node, channel_capacity=64 << 20)
+            d.ensure_compiled()
+            ray_tpu_torch.get(d.execute(prompts[0]), timeout=300)  # warm
+            per = []
+            for p in prompts:
+                t_submit = time.time()
+                r = ray_tpu_torch.get(d.execute(p), timeout=300)
+                per.append({"ttft_ms": (r["sealed_at"] - t_submit) * 1e3,
+                            "last_token_ms": (r["t_done"] - t_submit) * 1e3,
+                            "handoff_ms": (r["t_recv"] - r["sealed_at"]) * 1e3,
+                            "handoff_bytes": r["bytes"], "kv_on": r["kv_on"],
+                            "tokens": r["tokens"], "pages_left": r["pages_left"]})
+            d.teardown()
+            served[edge] = per
+            _check_same_tokens(f"disaggregated ({edge} edge)", params, serve["model"], enc,
+                               [r["tokens"] for r in per], want_tokens)
+            _check(all(r["pages_left"] == 0 for r in per),
+                   f"the decode engine kept pages after the {edge} edge's requests")
+        _check(all(r["kv_on"] == device for r in served["device"]),
+               "the device edge's K/V did not arrive on the card")
+        row["disaggregated"] = {
+            "requests": len(prompts), "tokens_each": _DAG_N_NEW,
+            "tokens_equal_to_phase_4": True,
+            **{f"{edge}_edge": [{k: v for k, v in r.items() if k != "tokens"} for r in per]
+               for edge, per in served.items()},
+            "ttft_ms_median": {e: statistics.median(r["ttft_ms"] for r in per)
+                               for e, per in served.items()},
+            "handoff_ms_median": {e: statistics.median(r["handoff_ms"] for r in per)
+                                  for e, per in served.items()},
+            "handoff_share_of_ttft_median": {
+                e: statistics.median(r["handoff_ms"] / (r["ttft_ms"] + r["handoff_ms"])
+                                     for r in per) for e, per in served.items()},
+            "phase_4_ttft_s_median": serve["row"].get("ttft_s_median")}
+        print("[dag] disaggregated " + json.dumps(row["disaggregated"]))
+
+        # (d) util.collective between the two actors.
+        ra, rb = ray_tpu_torch.get([a.collective.remote(0, 7), b.collective.remote(1, 7)],
+                                   timeout=300)
+        xs = [_collective_input(7 + r, device).cpu().numpy() for r in range(2)]
+        for r, got in enumerate((ra, rb)):
+            _check(got["devices"] == [device], f"rank {r}'s results came back on "
+                                               f"{got['devices']}")
+            _check(np.array_equal(got["sum"], xs[0] + xs[1])
+                   and all(np.array_equal(g, x) for g, x in zip(got["gather"], xs))
+                   and np.array_equal(got["bcast"], xs[0]),
+                   f"rank {r}'s collectives differ from numpy's")
+        row["collective"] = {"elements": _DAG_COLLECTIVE_N, "dtype": "float32",
+                             "equal_to_numpy": True, "devices": ra["devices"],
+                             "ms_rank_0": ra["ms"], "ms_rank_1": rb["ms"]}
+        print("[dag] collective " + json.dumps(row["collective"]))
+        pids |= _cluster_processes(os.getpid()) - earlier
+        ray_tpu_torch.kill(a)
+        ray_tpu_torch.kill(b)
+
+        # (c) TorchTrainer: phase 9 (a)'s loop on a GPU worker.
+        ref = shared["train_backend"]
+        cfg, _, _ = _dag_train_setup(small)
+        backend = train.TorchConfig(device=device, distributed="on", timeout_s=300)
+        fits = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, loop_cfg in (("fit", {}), ("resumed", None)):
+                if loop_cfg is None:
+                    loop_cfg = {"resume_from": fits["fit"].checkpoint.path}
+                t = time.perf_counter()
+                fits[name] = train.TorchTrainer(
+                    _dag_train_loop,
+                    train_loop_config={"small": small, "device": device, **loop_cfg},
+                    scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+                    run_config=train.RunConfig(
+                        name=f"chip_smoke_{name}", storage_path=tmp,
+                        checkpoint_config=train.CheckpointConfig(num_to_keep=1)),
+                    backend_config=backend).fit()
+                fits[name + "_s"] = time.perf_counter() - t
+            pids |= _cluster_processes(os.getpid()) - earlier
+        hist = {k: fits[k].metrics_history for k in ("fit", "resumed")}
+        losses = {k: [m["loss"] for m in h] for k, h in hist.items()}
+        last = fits["fit"].metrics
+        launched = {k: [h[-1]["launches"][n] for n in ("flash_fwd", "flash_bwd_dq",
+                                                        "flash_bwd_dkv")]
+                    for k, h in hist.items()}
+        row["trainer"] = {
+            "losses": losses["fit"], "resumed_losses_4_6": losses["resumed"],
+            "phase_9_losses": ref["losses"],
+            "bitwise_equal_to_phase_9": losses["fit"] == ref["losses"],
+            "resumed_bitwise_equal": losses["resumed"] == ref["losses"][3:],
+            "result_step": last["step"], "checkpoint": os.path.basename(
+                fits["fit"].checkpoint.path),
+            "step_ms": [m["step_ms"] for m in hist["fit"]],
+            "step_ms_median": statistics.median([m["step_ms"] for m in hist["fit"]][1:]),
+            "step_ms_median_phase_9": ref["step_ms_median"],
+            "fit_s": fits["fit_s"], "resumed_fit_s": fits["resumed_s"],
+            "launches": launched}
+        print("[dag] trainer " + json.dumps(row["trainer"]))
+        _check(row["trainer"]["bitwise_equal_to_phase_9"],
+               f"the trainer's losses differ from phase 9's: {losses['fit']} vs "
+               f"{ref['losses']}")
+        _check(row["trainer"]["resumed_bitwise_equal"],
+               f"the resumed fit's steps 4-6 differ: {losses['resumed']} vs "
+               f"{ref['losses'][3:]}")
+        _check(last["step"] == 6 and last["loss"] == ref["losses"][5]
+               and last["training_iteration"] == 5,
+               f"Result.metrics is not the 6th step's: {last}")
+        per_step = cfg.n_layers if device == "cuda" else 0
+        _check(launched == {"fit": [6 * per_step] * 3, "resumed": [3 * per_step] * 3},
+               f"the trainer's worker launched {launched} (fwd, dq, dkv)")
+        for h in hist.values():
+            counts = _add_counts(counts, h[-1])
+    finally:
+        ray_tpu_torch.shutdown()
+    deadline = time.time() + 10
+    while _live(pids) and time.time() < deadline:
+        time.sleep(0.1)
+    row["pids_left_after_shutdown"] = _live(pids)
+    row["phase_s"] = time.perf_counter() - t_phase
+    _check(not row["pids_left_after_shutdown"],
+           f"processes left after shutdown(): {row['pids_left_after_shutdown']}")
+    print("[dag] " + json.dumps({k: row[k] for k in ("actors_s", "phase_s",
+                                                     "pids_left_after_shutdown")}))
+    return {**counts, "row": row}
+
+
 # The main path's kernels as the kernels line names them: (the wrapper in
 # ray_tpu_torch.ops._kernels that launches it, whether it is the fp32
 # kernel, the source under ray_tpu_torch/csrc that holds it, the line of
@@ -3160,7 +3694,8 @@ def main() -> int:
              ("async_llm", lambda: phase_async_llm(shared), False),
              ("rllib", lambda: phase_rllib(shared), False),
              ("rllib_more", lambda: phase_rllib_more(shared), False),
-             ("runtime", lambda: phase_runtime(shared), False))
+             ("runtime", lambda: phase_runtime(shared), False),
+             ("dag", lambda: phase_dag(shared), False))
     launches = dict.fromkeys(_KERNELS, 0)
     for name, run, must_launch in paths:
         for w in wrappers:
@@ -3168,7 +3703,7 @@ def main() -> int:
         result = run()
         total = {"launches": _launch_counts(),
                  "copies": {w.__name__: w.copies for w in wrappers}}
-        if name in ("parallel", "train_backend", "rllib_more", "runtime"):
+        if name in ("parallel", "train_backend", "rllib_more", "runtime", "dag"):
             total = _add_counts(total, result)
         counted, copies = total["launches"], total["copies"]
         print(f"[{name}] launches " + json.dumps(counted))

@@ -4,15 +4,18 @@ The JAX package ``ray_tpu`` is the reference; this package imports
 nothing of it and nothing of JAX. Ported so far: the task/actor core
 (``init / remote / get / put / wait / kill / cancel / get_actor /
 shutdown`` over a single-node cluster whose workers hold the card under
-``GPU`` leases and pass torch tensors as objects), the ops (attention
+``GPU`` leases and pass torch tensors as objects), compiled DAGs over
+shm, TCP and CUDA IPC channels, host collective groups, the ops (attention
 with hand-written Hopper flash-attention kernels, forward and backward;
 MoE routing; the optimizers; ring attention), the transformer model
 family (dense and MoE; inference and training, on one device or sharded
 over a DeviceMesh: data, fsdp, tensor, expert), the parallel layer
 (meshes, sharding rules, the SPMD pipeline, multi-slice meshes; over
 torch.distributed and DTensor), the LLM engine (on one device, or
-tensor- or pipeline-parallel over a process group), the Train backend
-(process-group setup, gradient and parameter sync, checkpoints) and
+tensor- or pipeline-parallel over a process group, or disaggregated
+into prefill and decode engines), Train (the trainer and its worker
+group on the core, process-group setup, gradient and parameter sync,
+checkpoints) and
 RLlib on a local runner and learner. ``interop.params_from_jax``
 carries a JAX parameter tree across.
 
@@ -63,8 +66,8 @@ from ray_tpu_torch.actor import method
 from ray_tpu_torch import exceptions
 
 # Submodules loaded on first attribute access (PEP 562).
-_LAZY = ("accelerators", "interop", "kernel_report", "llm", "models", "ops",
-         "parallel", "rllib", "train", "tune", "util")
+_LAZY = ("accelerators", "dag", "experimental", "interop", "kernel_report", "llm",
+         "models", "ops", "parallel", "rllib", "train", "tune", "util")
 
 
 def __getattr__(name):

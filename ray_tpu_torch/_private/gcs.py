@@ -31,10 +31,12 @@ from typing import Any
 from ray_tpu_torch._private import rpc
 from ray_tpu_torch._private.config import Config
 from ray_tpu_torch._private.scheduler import (
+    GRANULARITY,
     ClusterScheduler,
     NodeEntry,
     PlacementGroupSchedulingStrategy,
     ResourceSet,
+    _fp,
 )
 from ray_tpu_torch._private.shm_store import ShmArena
 from ray_tpu_torch._private.task_spec import (ActorSpec, TaskSpec, env_pkg_key,
@@ -134,7 +136,7 @@ class WorkerRecord:
         "inflight", "started_at", "gpu_ids", "acquired", "ready", "pg_alloc",
         "gpu_capable", "cur_rkey", "zygote", "env_key", "blocked",
         "released_alloc", "retiring", "leased_to", "lease_deadline",
-        "lease_key", "expected_exit", "gpu_bound",
+        "lease_key", "expected_exit", "gpu_bound", "gpu_units",
     )
 
     def __init__(self, worker_id: str, node_id: str, proc,
@@ -154,6 +156,9 @@ class WorkerRecord:
         self.inflight: dict[str, TaskSpec] = {}
         self.started_at = time.time()
         self.gpu_ids: list[int] = []
+        # The share of each device in gpu_ids this lease holds, in the
+        # scheduler's 1e-4 units (GRANULARITY = a whole device).
+        self.gpu_units = 0
         self.acquired: ResourceSet | None = None
         self.pg_alloc: tuple[str, int, ResourceSet] | None = None  # (pg_id, bundle, demand)
         self.ready = False  # set by worker_ready (two-phase registration)
@@ -589,15 +594,18 @@ class Head:
         self._last_tsdb_sample = 0.0
         # GPU device pool for visibility pinning (reference:
         # python/ray/_private/accelerators/nvidia_gpu.py,
-        # CUDA_VISIBLE_DEVICES). A shard of a sharded head owns the
-        # contiguous device range its resource slice counts, from
-        # gpu_base on, so no device is leased from two shards.
+        # CUDA_VISIBLE_DEVICES): each device's free share in the
+        # scheduler's 1e-4 units, so fractional leases share a device.
+        # A shard of a sharded head owns the contiguous device range its
+        # resource slice counts, from gpu_base on, so no device is
+        # leased from two shards.
         from ray_tpu_torch.accelerators.cuda import CUDAAcceleratorManager
 
         n_gpus = int(node_resources.get("GPU", 0))
-        self.gpu_pool: dict[str, list] = {
-            self.node_id: CUDAAcceleratorManager.node_device_ids(
-                gpu_base + n_gpus)[gpu_base:]
+        self.gpu_pool: dict[str, dict[int, int]] = {
+            self.node_id: dict.fromkeys(
+                CUDAAcceleratorManager.node_device_ids(gpu_base + n_gpus)[gpu_base:],
+                GRANULARITY)
         }
         self.max_pool_workers = max(2, int(node_resources.get("CPU", 2)))
 
@@ -5288,7 +5296,7 @@ class Head:
                         if (node.node_id, need_gpu) in no_worker:
                             break
                         ek = key[1][1] if key[0] == "shape" else None
-                        n_gpu = int(spec.resources.get("GPU", 0))
+                        n_gpu = float(spec.resources.get("GPU", 0))
                         rec = self._idle_worker(node.node_id, need_gpu, ek,
                                                 n_gpu)
                         if rec is None:
@@ -5441,7 +5449,7 @@ class Head:
                     continue
                 scan_ek = self._env_key(spec.runtime_env)
                 rec = self._idle_worker(node.node_id, need_gpu, scan_ek,
-                                        int(spec.resources.get("GPU", 0)))
+                                        float(spec.resources.get("GPU", 0)))
                 if rec is None:
                     if not spawned and self._can_spawn(node.node_id,
                                                        need_gpu):
@@ -5513,7 +5521,7 @@ class Head:
 
     def _retire_idle_mismatch(self, node_id: str, need_gpu: bool,
                               env_key: "str | None",
-                              n_gpu: int = 0) -> None:
+                              n_gpu: float = 0) -> None:
         """lock held. Kill ONE idle worker whose env key (or, for a GPU
         task, whose bound devices) blocks this task class; its death
         handler frees a pool slot."""
@@ -5634,7 +5642,7 @@ class Head:
 
     def _idle_worker(self, node_id: str, need_gpu: bool = False,
                      env_key: "str | None" = None,
-                     n_gpu: int = 0) -> WorkerRecord | None:
+                     n_gpu: float = 0) -> WorkerRecord | None:
         """GPU tasks need a gpu_capable worker; chipless tasks need a
         GPU-hidden one — a gpu_capable worker running a chipless task
         would create a CUDA context on a device the lease never
@@ -5668,14 +5676,17 @@ class Head:
         # here would poison a worker that never runs the env.
         return claimable
 
-    def _gpus_fit_bound(self, rec: WorkerRecord, n_gpu: int) -> bool:
+    def _gpus_fit_bound(self, rec: WorkerRecord, n_gpu: float) -> bool:
         """lock held. Whether ``rec`` can take a lease of ``n_gpu``
-        devices: always for a worker no lease bound yet."""
+        devices (a fraction: a share of one): always for a worker no
+        lease bound yet."""
         bound = rec.gpu_bound
         if bound is None or n_gpu <= 0:
             return True
-        pool = self.gpu_pool.get(rec.node_id, [])
-        return len(bound) == n_gpu and all(i in pool for i in bound)
+        free = self.gpu_pool.get(rec.node_id, {})
+        if n_gpu < 1:
+            return len(bound) == 1 and free.get(bound[0], 0) >= _fp(n_gpu)
+        return len(bound) == n_gpu and all(free.get(i, 0) == GRANULARITY for i in bound)
 
     def _can_spawn(self, node_id: str, gpu_capable: bool = False) -> bool:
         """Pool caps are per worker kind: TPU-capable and hook-stripped
@@ -5919,28 +5930,43 @@ class Head:
     def _assign_gpus(self, rec: WorkerRecord, resources: dict[str, float]) -> bool:
         """Returns False if the device pool cannot cover the request — callers
         must treat that as unschedulable, never run with fewer devices than
-        the resource contract promised. A worker keeps the devices of its
-        first lease for life (``gpu_bound``): its CUDA has fixed them."""
-        n = int(resources.get("GPU", 0))
-        if n <= 0:
+        the resource contract promised. A request of n >= 1 takes n whole
+        free devices; a fraction takes one device whose free share covers
+        it (the tightest such device), so two 0.5 leases share a card and
+        both workers see it. A worker keeps the devices of its first lease
+        for life (``gpu_bound``): its CUDA has fixed them."""
+        want = float(resources.get("GPU", 0))
+        if want <= 0:
             return True
-        pool = self.gpu_pool.get(rec.node_id, [])
+        free = self.gpu_pool.setdefault(rec.node_id, {})
+        units = _fp(want) if want < 1 else GRANULARITY
         if rec.gpu_bound is not None:
-            if not self._gpus_fit_bound(rec, n):
+            if not self._gpus_fit_bound(rec, want):
                 return False
             ids = list(rec.gpu_bound)
-        elif len(pool) < n:
-            return False
+        elif want < 1:
+            fits = [d for d, f in free.items() if f >= units]
+            if not fits:
+                return False
+            ids = rec.gpu_bound = [min(fits, key=lambda d: (free[d], d))]
         else:
-            ids = rec.gpu_bound = pool[:n]
+            whole = sorted(d for d, f in free.items() if f == GRANULARITY)
+            if len(whole) < want:
+                return False
+            ids = rec.gpu_bound = whole[:int(want)]
         rec.gpu_ids = list(ids)
-        self.gpu_pool[rec.node_id] = [i for i in pool if i not in ids]
+        rec.gpu_units = units
+        for d in ids:
+            free[d] -= units
         return True
 
     def _return_gpus(self, rec: WorkerRecord) -> None:
         if rec.gpu_ids:
-            self.gpu_pool.setdefault(rec.node_id, []).extend(rec.gpu_ids)
+            free = self.gpu_pool.setdefault(rec.node_id, {})
+            for d in rec.gpu_ids:
+                free[d] = free.get(d, 0) + rec.gpu_units
             rec.gpu_ids = []
+            rec.gpu_units = 0
 
     # ------------------------------------------------------------------
     # failure handling + crash forensics

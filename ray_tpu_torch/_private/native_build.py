@@ -2,8 +2,8 @@
 
 The port keeps its own copies of the sources in ``ray_tpu_torch/src/``
 (the object-store arena, the spec codec, the event loop, the
-scheduler) and builds them into ``build/ray_tpu_torch/native/``, never
-into ray_tpu's ``ray_tpu/_native/``. The compiled artifacts are
+scheduler, the compiled-DAG channel ring) and builds them into
+``build/ray_tpu_torch/native/``, never into ray_tpu's ``ray_tpu/_native/``. The compiled artifacts are
 intentionally NOT committed — platform-specific binaries
 in a source tree drift from their sources and are a supply-chain hazard.
 Instead they are (re)built from ``ray_tpu_torch/src/`` via make whenever a consumer
@@ -30,7 +30,7 @@ _SRC = os.path.join(_PKG, "src")
 _OUT = os.path.join(os.path.dirname(_PKG), "build", "ray_tpu_torch",
                     "native")
 
-_TARGETS = ("libobjstore.so", "libsched.so")
+_TARGETS = ("libobjstore.so", "libsched.so", "libchannel.so")
 
 
 def _targets() -> tuple:

@@ -745,9 +745,15 @@ class Worker:
             args, kwargs = await loop.run_in_executor(
                 self._fetch_pool, self._load_args, spec)
             if spec.method_name == "__rtpu_dag_loop__":
-                # The compiled-DAG resident loop (ray_tpu:
-                # dag/channel_exec.actor_dag_loop).
-                raise NotImplementedError("DAGs (bind / experimental_compile) wait for ROADMAP item 6b")
+                from functools import partial
+
+                from ray_tpu_torch.dag.channel_exec import actor_dag_loop
+
+                # Fully blocking resident loop: give it its own default-
+                # executor thread, never the event loop.
+                result = await loop.run_in_executor(
+                    None, partial(actor_dag_loop, self.actor_instance,
+                                  *args, **kwargs))
             else:
                 method = getattr(self.actor_instance, spec.method_name)
                 result = method(*args, **kwargs)
@@ -1124,7 +1130,10 @@ class Worker:
                     # Reserved: the compiled-DAG resident loop runs the
                     # instance's bound methods off channels (reference:
                     # pinned actor executables, compiled_dag_node.py:806).
-                    raise NotImplementedError("DAGs (bind / experimental_compile) wait for ROADMAP item 6b")
+                    from ray_tpu_torch.dag.channel_exec import actor_dag_loop
+
+                    result = actor_dag_loop(self.actor_instance, *args,
+                                            **kwargs)
                 else:
                     method = getattr(self.actor_instance, spec.method_name)
                     result = method(*args, **kwargs)

@@ -15,7 +15,7 @@ from ray_tpu_torch._private.config import GLOBAL_CONFIG
 from ray_tpu_torch._private.ids import fast_hex_id, ActorID, ObjectRef
 from ray_tpu_torch._private.task_spec import ActorSpec, TaskSpec
 from ray_tpu_torch._private.worker_context import global_runtime
-from ray_tpu_torch.remote_function import _normalize_resources, _pack_env
+from ray_tpu_torch.remote_function import _check_gpu_options, _normalize_resources, _pack_env
 
 
 class ActorMethod:
@@ -43,7 +43,9 @@ class ActorMethod:
 
     def bind(self, *args, **kwargs):
         """Capture this call as a DAG node (reference: dag/class_node.py)."""
-        raise NotImplementedError("DAGs (bind / experimental_compile) wait for ROADMAP item 6b")
+        from ray_tpu_torch.dag.nodes import ClassMethodNode
+
+        return ClassMethodNode(self, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(
@@ -139,6 +141,7 @@ class ActorClass:
         self.__name__ = getattr(cls, "__name__", "Actor")
 
     def options(self, **overrides) -> "ActorClass":
+        _check_gpu_options(overrides)
         opts = dict(self._opts)
         opts.update(overrides)
         return ActorClass(self._cls, **opts)

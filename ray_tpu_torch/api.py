@@ -198,8 +198,16 @@ def put(value: Any) -> ObjectRef:
 
 def get(refs: ObjectRef | Sequence[ObjectRef], *, timeout: float | None = None):
     auto_init()
-    # ray_tpu resolves channel-compiled DAG results (CompiledDAGRef)
-    # here too; the port has no compiled DAGs yet (ROADMAP item 6b).
+    from ray_tpu_torch.dag.nodes import CompiledDAGRef
+
+    # Channel-compiled DAG results resolve through their channel, not
+    # the object store (reference: ray.get on CompiledDAGRef).
+    if isinstance(refs, CompiledDAGRef):
+        # timeout=None blocks indefinitely, matching ObjectRef gets.
+        return refs.get(timeout_s=timeout)
+    if isinstance(refs, (list, tuple)) and any(
+            isinstance(r, CompiledDAGRef) for r in refs):
+        return [get(r, timeout=timeout) for r in refs]
     return global_runtime().get(refs, timeout=timeout)
 
 

@@ -35,9 +35,16 @@ Callers hand their requests over through a queue that the thread drains
 before each step, not through the engine lock, which the thread takes
 step after step.
 
-Not here: disaggregated prefill/decode and the engine's trace spans come
-on the task/actor core in ROADMAP.md §1 item 6c; orbax checkpoint
-directories raise (the port reads .npz only; ROADMAP.md §3).
+Disaggregated serving: a prefill engine's ``prefill_detached`` runs one
+prompt's prefill and returns a self-contained record of its KV pages (as
+tensors on that engine's device, ``[L, n, page, KV, Dh]``, so a device
+edge of a compiled DAG keeps them on the card; ray_tpu returns numpy);
+a decode engine's ``add_handoff_request`` installs them at admission
+instead of prefilling. Requests traced by the caller get the engine's
+spans (``llm.prefill``, ``llm.decode``) in their trace.
+
+Not here: orbax checkpoint directories raise (the port reads .npz only;
+ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -60,8 +67,6 @@ from ray_tpu_torch.llm.config import LLMConfig, SamplingParams
 from ray_tpu_torch.llm.kv_pages import KVPageError
 from ray_tpu_torch.llm.tokenizer import load_tokenizer
 from ray_tpu_torch.models import transformer as tfm
-
-_RUNTIME = "waits for ROADMAP.md §1 item 6c (the KV handoff on the task/actor core)"
 
 # Top-k width of the device logprob output (vLLM max_logprobs).
 MAX_LOGPROBS = 20
@@ -88,6 +93,11 @@ class Request:
     guided: "object | None" = None
     t_add: float = 0.0       # enqueue wall time (queue-wait start)
     t_first: float = 0.0     # first-token wall time (decode start)
+    # The caller's trace context (worker_context.get_trace_context());
+    # the engine's spans join that trace.
+    trace_ctx: Any = None
+    # A prefill_detached() record: admission installs its pages.
+    handoff: "dict | None" = None
 
 
 @dataclasses.dataclass
@@ -433,21 +443,160 @@ class LLMEngine:
         req = Request(request_id, toks, sp)
         if sp.response_format is not None:
             req.guided = self._make_guided(sp.response_format)
+        req.trace_ctx = _trace_context()
         req.t_add = time.time()
         return req
 
     def has_unfinished(self) -> bool:
         return bool(self.waiting) or any(s is not None for s in self.slots)
 
-    # -- disaggregated prefill/decode --------------------------------------
+    # -- disaggregated prefill/decode (KV handoff) ------------------------
 
-    def prefill_detached(self, *args, **kwargs) -> dict:
-        raise NotImplementedError(
-            f"disaggregated prefill/decode (prefill_detached) {_RUNTIME}")
+    def prefill_detached(self, prompt: "str | list[int]",
+                         sampling_params: "SamplingParams | None" = None,
+                         ) -> dict:
+        """Prefill side of disaggregated serving: run ONE prompt's
+        prefill, sample its first token, and return a self-contained
+        record of its KV pages, then free the slot and the pages. The
+        record's ``k``/``v`` are tensors on this engine's device,
+        ``[L, n, page, KV, Dh]`` (ray_tpu returns numpy): a compiled
+        DAG's device edge hands them to the decode engine device to
+        device."""
+        if self.kv_alloc is None:
+            raise ValueError(
+                "prefill_detached requires paged KV (kv_page_size > 0)")
+        sp = sampling_params or self.config.sampling_defaults
+        if sp.response_format is not None:
+            raise ValueError(
+                "guided decoding cannot cross a prefill/decode handoff "
+                "(the JSON automaton state is host-local)")
+        if sp.logprobs > MAX_LOGPROBS:
+            raise ValueError(
+                f"logprobs={sp.logprobs} exceeds the engine cap "
+                f"{MAX_LOGPROBS}")
+        toks = (self.tokenizer.encode(prompt) if isinstance(prompt, str)
+                else list(prompt))
+        toks = toks[: self.max_len - 1]
+        if not toks:
+            raise ValueError("empty prompt")
+        with self._lock:
+            slot = next((i for i, s in enumerate(self.slots) if s is None),
+                        None)
+            if slot is None:
+                from ray_tpu_torch.exceptions import PendingCallsLimitError
 
-    def add_handoff_request(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            f"disaggregated prefill/decode (add_handoff_request) {_RUNTIME}")
+                raise PendingCallsLimitError(
+                    f"no free prefill slot (all {len(self.slots)} busy)")
+            import uuid as _uuid
+
+            req = Request(f"pfd-{_uuid.uuid4().hex[:12]}", toks, sp)
+            if self.lora_mgr is not None:
+                req.lora_ix = self._req_lora_ix(req)
+            req.trace_ctx = _trace_context()
+            req.t_add = time.time()
+            try:
+                try:
+                    last_logits = self._prefill_into(slot, toks,
+                                                     lora_ix=req.lora_ix)
+                except KVPageError as e:
+                    # Retryable backpressure, as a full admission queue.
+                    from ray_tpu_torch.exceptions import PendingCallsLimitError
+
+                    raise PendingCallsLimitError(str(e)) from None
+                self.slots[slot] = req
+                if sp.seed is not None:
+                    self.seeds[slot] = sp.seed & 0xFFFFFFFF
+                else:
+                    self.seeds[slot] = int(self._host_rng.integers(0, 2**32))
+                if sp.logprobs > 0:
+                    req.logprobs = []
+                tok = self._sample_host(last_logits.cpu().numpy(), slot, req)
+                req.t_first = time.time()
+                self._emit_span(req, "llm.prefill", req.t_add, req.t_first,
+                                {"prompt_tokens": len(toks), "handoff": True})
+                pages = torch.tensor(self._page_tables[slot], dtype=torch.int64,
+                                     device=self.device)
+                k_pages, v_pages = kv_pages.read_pages(self.cache, pages)
+                return {
+                    "fmt": 1,
+                    "model_id": self.config.model_id,
+                    "page_size": self.page_size,
+                    "prompt_tokens": list(toks),
+                    "first_token": int(tok),
+                    "seed": sp.seed,
+                    "lora": (sp.extra or {}).get("lora") or "",
+                    "logprobs0": (req.logprobs[0] if req.logprobs
+                                  else None),
+                    "sealed_at": time.time(),
+                    "k": k_pages,
+                    "v": v_pages,
+                }
+            finally:
+                self._release_slot(slot)
+
+    def add_handoff_request(self, request_id: str, handoff: dict,
+                            sampling_params: "SamplingParams | None" = None,
+                            ) -> None:
+        """Decode side: queue a request whose prompt K/V arrives as a
+        prefill_detached() record (its k/v tensors on any device, or
+        numpy). Admission installs the pages (_resume_into) instead of
+        prefilling."""
+        self.waiting.append(
+            self._new_handoff_request(request_id, handoff, sampling_params))
+
+    def _new_handoff_request(self, request_id: str, handoff: dict,
+                             sampling_params: "SamplingParams | None" = None,
+                             ) -> Request:
+        """add_handoff_request's checks and Request, not queued."""
+        if self.kv_alloc is None:
+            raise ValueError(
+                "handoff decode requires paged KV (kv_page_size > 0)")
+        for key in ("k", "v", "prompt_tokens", "first_token", "page_size"):
+            if key not in handoff:
+                raise ValueError(f"malformed handoff record: missing {key!r}")
+        if int(handoff["page_size"]) != self.page_size:
+            raise ValueError(
+                f"handoff page_size {handoff['page_size']} != engine "
+                f"page_size {self.page_size}")
+        c = self.model_config
+        shape = tuple(handoff["k"].shape)
+        want = (c.n_layers, shape[1] if len(shape) > 1 else 0, self.page_size,
+                c.kv_heads, c.head_dim)
+        if len(shape) != 5 or shape != want:
+            raise ValueError(
+                f"handoff KV shape {shape} does not match engine "
+                f"geometry {want}")
+        if shape[1] > self._max_blocks:
+            raise ValueError(
+                f"handoff carries {shape[1]} pages > engine max "
+                f"{self._max_blocks}")
+        sp = sampling_params or self.config.sampling_defaults
+        if handoff.get("lora") and not (sp.extra or {}).get("lora"):
+            sp = dataclasses.replace(
+                sp, extra={**(sp.extra or {}), "lora": handoff["lora"]})
+        if (sp.extra or {}).get("lora") and self.lora_mgr is None:
+            raise ValueError(
+                f"handoff selects LoRA adapter "
+                f"{(sp.extra or {}).get('lora')!r} but the engine has "
+                "no lora= config")
+        req = Request(request_id, list(handoff["prompt_tokens"]), sp)
+        req.handoff = handoff
+        req.trace_ctx = _trace_context()
+        req.t_add = time.time()
+        return req
+
+    def _resume_into(self, slot: int, req: Request) -> int:
+        """Install a handoff record's KV pages into ``slot`` and return
+        the prefill side's first token. Raises KVPageError (the caller
+        requeues) when the pool cannot cover the record."""
+        h = req.handoff
+        n = int(h["k"].shape[1])
+        pages = self._alloc_pages(n)
+        self._set_table(slot, pages)
+        kv_pages.write_pages(
+            self.cache, torch.tensor(pages, dtype=torch.int64, device=self.device),
+            h["k"], h["v"])
+        return int(h["first_token"])
 
     # -- guided decoding (ray_tpu_torch.llm.guided) --------------------------
 
@@ -571,11 +720,15 @@ class LLMEngine:
                 break
         if not admits:
             return
-        if not batchable or len(admits) == 1:
+        if (not batchable or len(admits) == 1
+                or any(r.handoff is not None for _, r in admits)):
             for i, (slot, req) in enumerate(admits):
                 try:
-                    last_logits = self._prefill_into(
-                        slot, req.prompt_tokens, lora_ix=req.lora_ix)
+                    if req.handoff is not None:
+                        tok0 = self._resume_into(slot, req)
+                    else:
+                        last_logits = self._prefill_into(
+                            slot, req.prompt_tokens, lora_ix=req.lora_ix)
                 except KVPageError:
                     # Page pool exhausted even after prefix eviction:
                     # requeue this and the rest at the queue head —
@@ -583,8 +736,11 @@ class LLMEngine:
                     self.waiting.extendleft(
                         r for _, r in reversed(admits[i:]))
                     return
-                self._finish_admit(slot, req, last_logits.cpu().numpy(),
-                                   outputs)
+                if req.handoff is not None:
+                    self._finish_admit(slot, req, None, outputs, first_tok=tok0)
+                else:
+                    self._finish_admit(slot, req, last_logits.cpu().numpy(),
+                                       outputs)
             return
         if self.kv_alloc is not None:
             # Pre-allocate every admit's pages (the batched prefill needs
@@ -648,10 +804,13 @@ class LLMEngine:
                 self._finish_admit(slot, req, logits_np[j], outputs)
 
     def _finish_admit(self, slot: int, req: Request,
-                      last_logits: np.ndarray,
-                      outputs: list[RequestOutput]) -> None:
+                      last_logits: "np.ndarray | None",
+                      outputs: list[RequestOutput],
+                      first_tok: "int | None" = None) -> None:
         """Per-request state wiring after its prompt K/V is in ``slot``
-        and its last-token logits are on the host."""
+        and its last-token logits are on the host. ``first_tok``: a
+        handoff's resume, whose first token the prefill engine sampled
+        (and whose llm.prefill span it emitted)."""
         sp = req.params
         self.positions[slot] = len(req.prompt_tokens)
         self.slots[slot] = req
@@ -680,7 +839,12 @@ class LLMEngine:
             self.seeds[slot] = int(self._host_rng.integers(0, 2**32))
         if sp.logprobs > 0:
             req.logprobs = []
-        if req.guided is not None:
+        if first_tok is not None:
+            tok = int(first_tok)
+            if (req.logprobs is not None and req.handoff is not None
+                    and req.handoff.get("logprobs0") is not None):
+                req.logprobs.append(req.handoff["logprobs0"])
+        elif req.guided is not None:
             tok = self._guided_sample(req, slot, last_logits)
         else:
             tok = self._sample_host(last_logits, slot, req)
@@ -693,7 +857,13 @@ class LLMEngine:
                 self._counts, self._prompt_mask, slot, self._dev(hist), tok)
         self.last_tokens[slot] = tok
         req.generated.append(tok)
+        # Queue wait and prefill up to the first token, into the caller's
+        # trace; a handoff's resume skips it (the prefill engine emitted
+        # its own).
         req.t_first = time.time()
+        if first_tok is None:
+            self._emit_span(req, "llm.prefill", req.t_add, req.t_first,
+                            {"prompt_tokens": len(req.prompt_tokens)})
         self._maybe_finish(slot, outputs)
 
     def _prefill_into(self, slot: int, toks: list[int], lora_ix: int = 0):
@@ -1106,7 +1276,37 @@ class LLMEngine:
             logprobs=req.logprobs,
             error=guided_err,
         ))
+        self._emit_span(
+            req, "llm.decode", req.t_first or req.t_add, time.time(),
+            {"tokens": len(req.generated), "finish_reason": reason})
         self._release_slot(slot)
+
+    @staticmethod
+    def _emit_span(req: Request, name: str, start: float, end: float,
+                   attributes: "dict | None" = None) -> None:
+        """Buffer one engine span into the request's trace (the port's
+        traceplane flushes it with the owner's next report). No-op for
+        untraced or unsampled requests, so a batch generate() emits no
+        span."""
+        tc = req.trace_ctx
+        if not (tc and int(tc[2] or 0)):
+            return
+        from ray_tpu_torch._private import traceplane
+
+        traceplane.buffer_span({
+            "event": "span",
+            "name": name,
+            "kind": "llm",
+            "trace_id": tc[0],
+            "span_id": traceplane.new_span_id(),
+            "parent_span_id": tc[1],
+            "pid": os.getpid(),
+            "start": start,
+            "end": end,
+            "failed": False,
+            "attributes": {"request_id": req.request_id,
+                           **(attributes or {})},
+        })
 
     def _ensure_page_capacity(self, active: list[int],
                               outputs: list[RequestOutput]) -> list[int]:
@@ -1607,13 +1807,26 @@ class AsyncLLMEngine:
     async def generate_from_handoff(self, handoff: dict,
                                     sampling_params: SamplingParams | None = None,
                                     deadline: "float | None" = None):
-        """The continuation of a disaggregated prefill's handoff record:
-        it needs the engine's ``add_handoff_request``, which waits for
-        ROADMAP.md §1 item 6c."""
-        raise NotImplementedError(
-            "generate_from_handoff needs LLMEngine.add_handoff_request "
-            "(disaggregated prefill/decode), which waits for ROADMAP.md §1 "
-            "item 6c (the KV handoff on the task/actor core)")
+        """Awaitable continuation of a prefill_detached() record: its KV
+        pages are installed at admission and it decodes under the same
+        continuous batcher and deadline eviction as generate()."""
+        import asyncio
+        import concurrent.futures
+        import uuid
+
+        rid = f"hreq-{uuid.uuid4().hex[:12]}"
+        # Checked here, so that a bad record raises in its caller.
+        req = self.engine._new_handoff_request(rid, handoff, sampling_params)
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        self._submit(req, fut, deadline)
+        return await asyncio.wrap_future(fut)
+
+
+def _trace_context():
+    """The calling task's trace context, or None outside a traced task."""
+    from ray_tpu_torch._private import worker_context
+
+    return worker_context.get_trace_context()
 
 
 def _load_checkpoint(path: str, device):

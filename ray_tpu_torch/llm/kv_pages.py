@@ -256,3 +256,22 @@ def paged_decode(params, tokens, positions, block_tables, cache,
     logits = model_runner._final_logits(x, params, c, dt)[:, 0]
     toks = model_runner.sample_tokens(logits, temperature, rng)
     return toks, logits, cache
+
+
+def read_pages(cache, pages):
+    """Copy ``pages`` ([n] int64 tensor) out of the pool: the payload of a
+    prefill -> decode handoff. Returns (k, v), each [L, n, page, KV, Dh],
+    new tensors on the pool's device."""
+    return cache["k"][:, pages], cache["v"][:, pages]
+
+
+def write_pages(cache, pages, k, v):
+    """Install handed-off K/V pages ([L, n, page, KV, Dh]) at ``pages``, in
+    place (ray_tpu returns a new pool); ``k``/``v`` may be numpy arrays or
+    tensors on any device. Returns the pool."""
+    dev, dt = cache["k"].device, cache["k"].dtype
+    for key, x in (("k", k), ("v", v)):
+        if not isinstance(x, torch.Tensor):
+            x = torch.tensor(x)  # a copy: a numpy record may be read-only
+        cache[key][:, pages] = x.to(device=dev, dtype=dt)
+    return cache

@@ -46,6 +46,27 @@ def _pack_env(runtime_env: dict | None, rt) -> dict | None:
     return packed
 
 
+def _check_gpus(gpus) -> None:
+    """A GPU request is a share of one device (0 < n < 1) or a whole
+    number of devices, as in Ray: 1.5 GPUs would need half of a device
+    the lease cannot pin."""
+    if gpus is None:
+        return
+    n = float(gpus)
+    if n < 0 or (n > 1 and not n.is_integer()):
+        raise ValueError(
+            f"num_gpus={gpus}: a GPU request is a fraction of one device "
+            f"(0 < n < 1) or a whole number of devices")
+
+
+def _check_gpu_options(opts: dict) -> None:
+    """Validate the GPU request in task or actor options (num_gpus=,
+    its alias num_tpus=, or resources={"GPU": n})."""
+    for key in ("num_gpus", "num_tpus"):
+        _check_gpus(opts.get(key))
+    _check_gpus((opts.get("resources") or {}).get("GPU"))
+
+
 def _normalize_resources(
     num_cpus: float | None,
     num_gpus: float | None,
@@ -57,6 +78,7 @@ def _normalize_resources(
     res["CPU"] = float(default_cpus if num_cpus is None else num_cpus)
     if num_gpus:
         res["GPU"] = float(num_gpus)
+    _check_gpus(res.get("GPU"))
     if memory:
         res["memory"] = float(memory)
     return {k: v for k, v in res.items() if v}
@@ -70,6 +92,7 @@ class RemoteFunction:
         self.__doc__ = getattr(fn, "__doc__", None)
 
     def options(self, **overrides) -> "RemoteFunction":
+        _check_gpu_options(overrides)
         opts = dict(self._opts)
         opts.update(overrides)
         return RemoteFunction(self._fn, **opts)
@@ -82,7 +105,9 @@ class RemoteFunction:
 
     def bind(self, *args, **kwargs):
         """Capture this call as a DAG node (reference: dag/function_node.py)."""
-        raise NotImplementedError("DAGs (bind / experimental_compile) wait for ROADMAP item 6b")
+        from ray_tpu_torch.dag.nodes import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def _invariants(self) -> tuple:
         """Options-derived fields computed once per RemoteFunction (the

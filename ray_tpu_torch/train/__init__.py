@@ -1,16 +1,16 @@
-"""ray_tpu_torch.train — the Train backend over torch.distributed (port of
-ray_tpu.train without the trainer).
+"""ray_tpu_torch.train — distributed training over torch.distributed (port
+of ray_tpu.train).
 
-    from ray_tpu_torch.train import (TorchBackend, TorchConfig, ScalingConfig,
-                                     RunConfig, Checkpoint, CheckpointManager,
-                                     get_context, torch_utils)
+    from ray_tpu_torch.train import (TorchTrainer, TorchBackend, TorchConfig,
+                                     ScalingConfig, RunConfig, Checkpoint,
+                                     report, get_checkpoint, get_context,
+                                     torch_utils)
 
-What needs no runtime is here: the configs, checkpoints and their top-k
-manager, the session a loop reads, the backend that sets up a worker's
-process group, and the gradient and parameter sync of a data-parallel
-loop. ``JaxTrainer``'s counterpart and its worker group start workers as
-actors, and ``report`` is an actor call: they come on the task/actor
-core (``ray_tpu_torch.init`` / ``remote``) in ROADMAP.md §1 item 6c.
+``TorchTrainer`` (ray_tpu's JaxTrainer) runs a loop on a gang of worker
+actors of the task/actor core; each worker's ``TorchBackend`` setup
+starts its process group, ``report`` sends metrics and checkpoints to
+the run's state actor, and ``torch_utils`` syncs parameters and
+gradients of a data-parallel loop.
 """
 
 from ray_tpu_torch.train import torch_utils
@@ -36,6 +36,7 @@ from ray_tpu_torch.train.session import (
     make_temp_checkpoint_dir,
     report,
 )
+from ray_tpu_torch.train.trainer import TorchTrainer
 
 __all__ = [
     "Backend",
@@ -49,6 +50,7 @@ __all__ = [
     "ScalingConfig",
     "TorchBackend",
     "TorchConfig",
+    "TorchTrainer",
     "TrainContext",
     "get_checkpoint",
     "get_context",

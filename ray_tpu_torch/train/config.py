@@ -2,9 +2,11 @@
 
 The counterparts of ray.air's ScalingConfig, RunConfig, FailureConfig and
 CheckpointConfig, and of the Result a run returns. Field for field the
-reference's, with the same defaults and derived values; ``use_tpu`` and
-``tpus_per_worker`` keep their names so a config carries across, and
-``worker_resources`` asks for them under the same resource key.
+reference's, with the same defaults and derived values, except the
+accelerator: ``use_gpu`` and ``gpus_per_worker`` (ray.train's own names,
+as ``num_gpus=`` is the core's option) ask for the port's chip resource,
+"GPU"; ray_tpu's ``use_tpu`` and ``tpus_per_worker`` are taken as their
+aliases, so a config carries across.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ class ScalingConfig:
 
       - ``num_workers``: worker processes, one rank each in the process
         group the backend sets up (``TorchBackend``).
-      - ``use_tpu`` + ``tpus_per_worker``: accelerators reserved per worker
-        (the reference's names; the resource key stays "TPU").
+      - ``use_gpu`` + ``gpus_per_worker``: GPUs reserved per worker (the
+        "GPU" resource; the lease pins CUDA_VISIBLE_DEVICES). ``use_tpu``
+        and ``tpus_per_worker`` are aliases.
       - ``topology="mesh"``: one worker owns every local device and the
         loop runs sharded over a DeviceMesh (``ray_tpu_torch.parallel``);
         "workers": one process per rank.
@@ -30,13 +33,21 @@ class ScalingConfig:
     """
 
     num_workers: int = 1
-    use_tpu: bool = False
-    tpus_per_worker: float | None = None
+    use_gpu: bool = False
+    gpus_per_worker: float | None = None
     cpus_per_worker: float | None = None
     resources_per_worker: dict[str, float] | None = None
     topology: str = "workers"  # "workers" | "mesh"
     placement_strategy: str = "PACK"
     min_workers: int | None = None
+    use_tpu: dataclasses.InitVar[bool | None] = None
+    tpus_per_worker: dataclasses.InitVar[float | None] = None
+
+    def __post_init__(self, use_tpu, tpus_per_worker):
+        if use_tpu is not None:
+            self.use_gpu = self.use_gpu or bool(use_tpu)
+        if tpus_per_worker is not None and self.gpus_per_worker is None:
+            self.gpus_per_worker = tpus_per_worker
 
     @property
     def elastic(self) -> bool:
@@ -45,8 +56,8 @@ class ScalingConfig:
     def worker_resources(self) -> dict[str, float]:
         res = dict(self.resources_per_worker or {})
         res.setdefault("CPU", self.cpus_per_worker if self.cpus_per_worker is not None else 1.0)
-        if self.use_tpu:
-            res.setdefault("TPU", self.tpus_per_worker if self.tpus_per_worker is not None else 1.0)
+        if self.use_gpu:
+            res.setdefault("GPU", self.gpus_per_worker if self.gpus_per_worker is not None else 1.0)
         return res
 
 

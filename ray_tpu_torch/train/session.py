@@ -1,11 +1,11 @@
 """Per-worker training session: ranks, the checkpoint to resume from, the
 dataset shards and the process group (port of ray_tpu/train/session.py).
 
-``TrainSession.report`` sends metrics to the run's state actor in the
-reference, an actor call to the run's state actor, which comes with
-Train's trainer and worker group on the task/actor core (ROADMAP.md §1
-item 6c); it raises NotImplementedError until then. Everything else a
-training loop reads from its session works.
+``report`` is a synchronous actor call to the run's RunStateActor
+(``train.worker_group``), which registers rank 0's checkpoint with the
+run's CheckpointManager: the loop stages a checkpoint in a directory of
+its own (``make_temp_checkpoint_dir``) and the manager moves it into the
+run's storage.
 """
 
 from __future__ import annotations
@@ -14,9 +14,6 @@ import tempfile
 from typing import Any, Optional
 
 from ray_tpu_torch.train.checkpoint import Checkpoint
-
-_RUNTIME = ("waits for Train's trainer and worker group on the task/actor core "
-            "(ROADMAP.md §1 item 6c)")
 
 _session: "TrainSession | None" = None
 
@@ -27,7 +24,7 @@ class TrainSession:
         rank: int,
         world_size: int,
         local_rank: int,
-        collector=None,  # the run's state actor (with the trainer, item 6c)
+        collector=None,  # ActorHandle of the run's RunStateActor
         experiment_name: str = "train_run",
         latest_checkpoint: Checkpoint | None = None,
         dataset_shards: dict[str, Any] | None = None,
@@ -51,7 +48,22 @@ class TrainSession:
         self.iteration = start_iteration
 
     def report(self, metrics: dict, checkpoint: Checkpoint | None = None) -> None:
-        raise NotImplementedError(f"train.report (an actor call) {_RUNTIME}")
+        import ray_tpu_torch
+
+        if self.collector is None:
+            raise RuntimeError("train.report needs the run's state actor: run the "
+                               "loop through TorchTrainer.fit")
+        ckpt_path = None
+        if checkpoint is not None:
+            # Only rank 0's checkpoint is kept (a data-parallel run's ranks
+            # hold the same state).
+            if self.rank == 0:
+                ckpt_path = checkpoint.path
+            self.latest_checkpoint = checkpoint
+        # Synchronous actor call: per-worker ordering and backpressure.
+        ray_tpu_torch.get(
+            self.collector.report.remote(self.rank, self.iteration, metrics, ckpt_path))
+        self.iteration += 1
 
     def get_checkpoint(self) -> Checkpoint | None:
         return self.latest_checkpoint
@@ -120,5 +132,5 @@ def get_dataset_shard(name: str = "train"):
 
 
 def make_temp_checkpoint_dir() -> str:
-    """Scratch dir for assembling a checkpoint before registering it."""
+    """Scratch dir for assembling a checkpoint before report()."""
     return tempfile.mkdtemp(prefix="rtpu_ckpt_stage_")

@@ -1,8 +1,8 @@
 """ray_tpu_torch.util: placement groups, scheduling strategies, custom
-serializers, user trace spans, actor pools and queues (reference:
-ray.util). The rest of ray_tpu.util (collective groups, metrics, the
-state API, multiprocessing, dask, joblib) waits for ROADMAP items 6b
-and 6g."""
+serializers, user trace spans, actor pools, queues and host collective
+groups (``util.collective``; reference: ray.util). The rest of
+ray_tpu.util (metrics, the state API, multiprocessing, dask, joblib)
+waits for ROADMAP item 6g."""
 
 from ray_tpu_torch.util.actor_pool import ActorPool
 from ray_tpu_torch.util.placement_group import (

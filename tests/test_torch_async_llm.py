@@ -251,6 +251,31 @@ def test_a_step_that_raises_fails_owned_requests_and_the_loop_goes_on(monkeypatc
 
 
 def test_generate_from_handoff_waits_for_item_6c():
-    _, _, _, ta = _pair()
-    with pytest.raises(NotImplementedError, match="6c"):
-        _run(ta.generate_from_handoff({}))
+    """generate_from_handoff, against ray_tpu's: a record the engine
+    cannot take raises in the caller with ray_tpu's message (a dense
+    engine, then a record missing its K/V), and a prefill_detached record
+    decodes to the tokens of the monolithic engines. The name is from
+    when the port refused the call until ROADMAP item 6c; it is kept so
+    that the test's history stays one line.
+    tests/test_torch_llm_disagg.py holds the record itself against
+    ray_tpu's."""
+    je, te, ja, ta = _pair()
+    errors = []
+    for aeng in (ja, ta):
+        with pytest.raises(ValueError) as e:
+            _run(aeng.generate_from_handoff({}))
+        errors.append(str(e.value))
+    assert errors[0] == errors[1] == "handoff decode requires paged KV (kv_page_size > 0)"
+    je, te, ja, ta = _pair(kv_page_size=PAGE)
+    errors = []
+    for aeng in (ja, ta):
+        with pytest.raises(ValueError) as e:
+            _run(aeng.generate_from_handoff({"prompt_tokens": [1]}))
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
+    jsp, tsp = sampling(max_tokens=6, ignore_eos=True)
+    jrec = je.prefill_detached(PROMPTS[0], jsp)
+    trec = te.prefill_detached(PROMPTS[0], tsp)
+    jout = _run(ja.generate_from_handoff(jrec, jsp))
+    tout = _run(ta.generate_from_handoff(trec, tsp))
+    assert_same(je, [jout], [tout], [PROMPTS[0]])

@@ -563,7 +563,13 @@ def test_async_phase_runs_on_the_cpu(capsys):
                         "tokens": [o.token_ids for o in outs]}}
     row = chip_smoke.phase_async_llm(shared, device="cpu")
     assert row["prequeued"]["steps"] == 31  # one admission, then 31 decode steps
-    assert max(row["arriving"]["steps_per_request"]) <= 32
+    arriving = row["arriving"]
+    assert max(arriving["steps_per_request"]) <= 32
+    # from the step that queued it, each takes its 32 tokens' 31 steps
+    assert [s - q for s, q in zip(arriving["steps_per_request"],
+                                  arriving["steps_to_queue"])] == [31] * 8
+    assert all(0 <= h <= q for h, q in zip(arriving["steps_to_hand_over"],
+                                           arriving["steps_to_queue"]))
     assert row["deadline"]["raised_where"] == ["llm_decode"] * 2
     assert "[async_llm] " in capsys.readouterr().out
 
@@ -600,3 +606,41 @@ def test_runtime_phase_runs_on_the_cpu(capsys):
     worker = {"launches": dict(out["launches"], flash_fwd=1), "copies": out["copies"]}
     assert chip_smoke._add_counts(total, worker)["launches"]["flash_fwd"] == 4
     assert "[runtime] " in capsys.readouterr().out
+
+
+def test_dag_phase_runs_on_the_cpu(capsys):
+    """Phase 15 end to end on the CPU (1 MiB tensors, 4 executes, a tiny
+    model standing in for phase 4's and phase 9's): the device and shm
+    edges give the driver's draws, the disaggregated DAG gives the
+    monolithic engine's tokens, the collectives numpy's, the trainer's
+    worker phase 9's losses bit for bit (the resumed fit too); its counts
+    (none launches a kernel on the CPU) come back for the kernels line."""
+    import dataclasses
+
+    from ray_tpu_torch import models
+    from ray_tpu_torch.llm import LLMConfig, LLMEngine, SamplingParams
+
+    cfg = dataclasses.replace(models.tiny(vocab_size=512, max_seq_len=1024), dtype="float32")
+    params = models.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    eng = LLMEngine(LLMConfig(model=cfg, max_num_seqs=8, max_seq_len=1024, tokenizer="byte"),
+                    params, device="cpu")
+    words = "the engine answers every request with thirty two tokens "
+    prompts = [(words * 5)[:n] for n in (11, 24, 30, 50, 60, 100, 200, 240)]
+    outs = eng.generate(prompts, SamplingParams(max_tokens=chip_smoke._DAG_N_NEW,
+                                                ignore_eos=True))
+    shared = {"serve": {"params": params, "prompts": prompts, "model": cfg, "row": {},
+                        "tokens": [o.token_ids for o in outs]},
+              "train_backend": chip_smoke._dag_train_reference(True, "cpu")}
+    out = chip_smoke.phase_dag(shared, device="cpu", small=True)
+    row = out["row"]
+    # CPU tensors cross a device edge as host bytes in the slot (on the
+    # card only the descriptor does, under 64 KiB)
+    assert row["edge"]["bitwise_equal"] and row["edge"]["meta_bytes_per_message"] > 1 << 20
+    assert row["edge"]["in_flight"]["bitwise_equal"]
+    assert row["disaggregated"]["tokens_equal_to_phase_4"]
+    assert row["collective"]["equal_to_numpy"]
+    assert row["trainer"]["bitwise_equal_to_phase_9"] and row["trainer"]["resumed_bitwise_equal"]
+    assert row["pids_left_after_shutdown"] == []
+    assert set(out["launches"]) == set(chip_smoke._KERNELS)
+    assert set(out["launches"].values()) == {0}
+    assert "[dag] trainer " in capsys.readouterr().out

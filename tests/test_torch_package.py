@@ -60,7 +60,11 @@ missing = sorted(({"ray_tpu_torch.ops.moe", "ray_tpu_torch.ops.optim",
                      "accelerators", "accelerators.accelerator",
                      "accelerators.cuda", "util", "util.placement_group",
                      "util.scheduling_strategies", "util.serialization",
-                     "util.tracing", "util.actor_pool", "util.queue")})
+                     "util.tracing", "util.actor_pool", "util.queue",
+                     "util.collective", "dag", "dag.nodes", "dag.channel_exec",
+                     "dag.collective_node", "experimental", "experimental.channel",
+                     "experimental.tcp_channel", "experimental.device_channel",
+                     "train.worker_group", "train.trainer")})
                  - set(sys.modules))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "ray_tpu"
@@ -75,12 +79,13 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, missing, bad = out.stdout.split(" ", 2)
-    assert int(n_modules) >= 114
+    assert int(n_modules) >= 125
     assert missing == "[]"  # the MoE ops, the optimizers, the parallel slice,
     # the LLM plane's paged KV, LoRA, guided and pipeline modules, the
     # Train backend, RLlib (multi-agent and DreamerV3 too), Tune's
     # Trainable, the exceptions and the task/actor core (_private, the
-    # API, the accelerator managers, util) were imported
+    # API, the accelerator managers, util), the DAGs and their channels, util.collective
+    # and the trainer were imported
     assert bad.strip() == "[]"
 
 

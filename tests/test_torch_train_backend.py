@@ -392,11 +392,34 @@ SCALING = [dict(), dict(num_workers=4, min_workers=2), dict(num_workers=2, min_w
            dict(use_tpu=True, resources_per_worker={"TPU": 8, "mem": 1.0})]
 
 
+# The port's chip resource is "GPU" and its fields use_gpu/gpus_per_worker
+# (use_tpu/tpus_per_worker are aliases): compared with TPU and GPU mapped
+# to each other.
+_TO_REF = {"GPU": "TPU", "use_gpu": "use_tpu", "gpus_per_worker": "tpus_per_worker"}
+
+
+def _as_ref(d):
+    return {_TO_REF.get(k, k): v for k, v in d.items()}
+
+
 @pytest.mark.parametrize("kw", SCALING)
 def test_scaling_config_matches_reference(kw):
-    j, t = jconfig.ScalingConfig(**kw), train.ScalingConfig(**kw)
-    assert dataclasses.asdict(t) == dataclasses.asdict(j)
-    assert t.elastic == j.elastic and t.worker_resources() == j.worker_resources()
+    port_kw = dict(kw)
+    if kw.get("resources_per_worker"):
+        port_kw["resources_per_worker"] = {{"TPU": "GPU"}.get(k, k): v
+                                           for k, v in kw["resources_per_worker"].items()}
+    j, t = jconfig.ScalingConfig(**kw), train.ScalingConfig(**port_kw)
+    ref = dataclasses.asdict(j)
+    if ref["resources_per_worker"]:
+        ref["resources_per_worker"] = port_kw["resources_per_worker"]
+    assert _as_ref(dataclasses.asdict(t)) == ref
+    assert t.elastic == j.elastic
+    assert _as_ref(t.worker_resources()) == j.worker_resources()
+    # The port's own names give the same config as the aliases.
+    named = {{"use_tpu": "use_gpu", "tpus_per_worker": "gpus_per_worker"}.get(k, k): v
+             for k, v in port_kw.items()}
+    assert train.ScalingConfig(**named) == t
+    assert "TPU" not in t.worker_resources()
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(name="r"), dict(storage_path="/data/x", name="r")])
@@ -476,7 +499,9 @@ def test_session_errors_match_reference():
         assert train.get_checkpoint() == "c" and train.get_dataset_shard() == [1]
         with pytest.raises(KeyError):
             train.get_dataset_shard("eval")
-        with pytest.raises(NotImplementedError, match="item 6"):
+        # report is an actor call to the run's state actor, which only
+        # TorchTrainer.fit gives a session (tests/test_torch_trainer.py).
+        with pytest.raises(RuntimeError, match="state actor"):
             train.report({"loss": 1.0})
     finally:
         tsession.set_session(None)

@@ -205,15 +205,39 @@ Phases, in order; any failed check exits non-zero:
                bit; each kernel launches once per layer per step in the
                worker; the worker's step host ms beside phase 9's. After
                shutdown() no process the cluster started is left.
+ 16. serve_apps — the main path, part 14: Serve (ray_tpu_torch.serve)
+               and the OpenAI app (ray_tpu_torch.llm.serving) on the
+               core, serve.start() with the HTTP proxy on the loopback.
+               (a) build_openai_app on phase 4's configuration (its
+               weights from the same seed), one replica on num_gpus=1,
+               under /v1: phase 4's 8 prompts as concurrent POST
+               /v1/completions from threads over urllib give phase 4's
+               tokens (by id, vLLM's return_tokens_as_token_ids); a
+               streamed chat completion's SSE increments, joined, equal
+               its answer; GET /v1/models lists the model. Prints the
+               replica's seconds to ready, TTFT (concurrent one-token
+               requests) and decode tokens/s through HTTP beside phase
+               4's engine and phase 14's actor. (b) GPT-2 124M's bf16
+               forward (attn_impl="flash", T=1024) as a deployment on
+               num_gpus=0.5 whose __call__ is @serve.batch(max_batch_size
+               =4): 8 concurrent handle calls of one row each, each
+               within _SERVE_FWD_TOL of a direct forward of the row in
+               this process; the batch sizes the replica saw; its flash
+               launches are counted. (c) build_disaggregated_app (a
+               prefill and a decode replica on num_gpus=0.5 each) after
+               (a)'s app is deleted: phase 4's prompts over HTTP give
+               phase 4's tokens; the handoff's ms (median) and its share
+               of TTFT. After serve.shutdown() and shutdown() no process
+               the cluster started is left.
 
-Each path of phases 3-15 is driven with the kernels' launch and copy
+Each path of phases 3-16 is driven with the kernels' launch and copy
 counts set to 0 just before it and read just after; launches made in
 phase 2 do not count, those of the ranks of phases 7, 9 and 13, of
-phase 14's workers and of phase 15's trainer worker (its last report
-carries its counts) do. No path may make the
+phase 14's workers, of phase 15's trainer worker (its last report
+carries its counts) and of phase 16's forward replica do. No path may make the
 wrappers copy an input (the model's q, k, v are views that TMA reads in
 place, on each rank's shard too). The kernels line sums the launches of
-phases 3-15, one entry for each kernel: a wrapper
+phases 3-16, one entry for each kernel: a wrapper
 sends bf16/fp16 to a wgmma kernel and fp32 to a kernel of its own
 (every product in 3xTF32 on the tensor cores), and counts the two apart.
 Phase 2 also requires two launches of the fp32 forward and of the fp32
@@ -224,7 +248,8 @@ whole backward at GPT-2 124M's training shape.
 
 Phases 11, 12 and 13 reach no Pallas kernel's counterpart (the LLM
 runner, RLlib's MLPs and DreamerV3's GRU and MLPs launch none), nor do
-phase 15's engines and edges; their launches are counted all the same.
+phase 15's engines and edges, nor phase 16's LLM replicas; their
+launches are counted all the same.
 
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
@@ -2018,6 +2043,19 @@ _ASYNC_WAIT_S = 300.0
 _ARRIVAL_S = 0.05
 
 
+def _check_arriving(arriving: dict, n_new: int) -> None:
+    """An arriving caller's request is queued at the driver's next step
+    after its hand-over, so it ends within n_new engine steps of the
+    hand-over (the step under way counts). Steps before the hand-over
+    (the caller reads the count, then generate() hands the request
+    over) are not the engine's."""
+    _check(max(arriving["steps_per_request"]) <= n_new,
+           f"arriving callers waited to be admitted: "
+           f"{arriving['steps_per_request']} steps from the hand-over for {n_new} "
+           f"tokens (to the hand-over {arriving['steps_to_hand_over']}, to the "
+           f"queue {arriving['steps_to_queue']})")
+
+
 def phase_async_llm(shared: dict, device: str = "cuda"):
     """Phase 11: concurrent asyncio callers, a stream, deadlines (dense
     and paged) and a sync generate() beside the driver, on phase 4's
@@ -2076,8 +2114,8 @@ def phase_async_llm(shared: dict, device: str = "cuda"):
     async def caller(prompt, delay=0.0):
         """One caller's request, streamed: its output, the seconds to its
         first token and to its end, the engine steps from its submission
-        to its first and its last token, and to its hand-over and its
-        queueing."""
+        to its first token, to its hand-over and to its queueing, and
+        from its hand-over to its last token."""
         if delay:
             await asyncio.sleep(delay)
         t_sub, s_sub = time.time(), eng._step_count
@@ -2090,7 +2128,7 @@ def phase_async_llm(shared: dict, device: str = "cuda"):
         return {"out": out, "t_first": t_first, "t_end": time.time(),
                 "ttft_s": t_first - t_sub,
                 "steps_to_first": first_at[out.request_id] - s_sub,
-                "steps": done_at[out.request_id] - s_sub,
+                "steps": done_at[out.request_id] - handed_at[out.request_id],
                 "steps_to_hand_over": handed_at[out.request_id] - s_sub,
                 "steps_to_queue": queued_at[out.request_id] - s_sub}
 
@@ -2146,11 +2184,7 @@ def phase_async_llm(shared: dict, device: str = "cuda"):
                                               for g, r in zip(got, ref))}
     lengths = [len(g["out"].token_ids) for g in got]
     _check(lengths == [n_new] * len(enc), f"arriving callers got {lengths} tokens")
-    _check(max(row["arriving"]["steps_per_request"]) <= n_new,
-           f"arriving callers waited to be admitted: "
-           f"{row['arriving']['steps_per_request']} steps for {n_new} tokens "
-           f"(to the hand-over {row['arriving']['steps_to_hand_over']}, to the "
-           f"queue {row['arriving']['steps_to_queue']})")
+    _check_arriving(row["arriving"], n_new)
 
     # One streamed request: its increments, joined, are its output.
     async def streamed():
@@ -3136,6 +3170,7 @@ def phase_runtime(shared: dict, device: str = "cuda", small: bool = False):
             "phase_4_decode_tokens_per_s": serve["row"].get("decode_tokens_per_s"),
             "phase_4_ttft_s_median": serve["row"].get("ttft_s_median"),
             "launches": ainfo["launches"]}
+        shared["runtime"] = row["engine_actor"]
         counts = _add_counts(counts, ainfo)
         ray_tpu_torch.kill(actor)
         pids |= _cluster_processes(os.getpid()) - earlier
@@ -3606,6 +3641,280 @@ def phase_dag(shared: dict, device: str = "cuda", small: bool = False):
     return {**counts, "row": row}
 
 
+# Phase 16 (serve_apps): Serve and the OpenAI app on the task/actor core.
+# (b)'s rows: how many, the positions of each whose logits come back, and
+# the limit against a direct forward of the row here, of the row's largest
+# |logit|: the replica's batch of 4 and the direct batch of 1 run the
+# same kernels on the same bf16 weights, but the GEMMs may take other
+# tiles (and so another order of the sums) at another M; 12 layers of
+# bf16 (8-bit significand) rounding differences stay well under 2^-5.
+_SERVE_FWD_ROWS = 8
+_SERVE_FWD_LAST = 8
+_SERVE_FWD_TOL = 2.0 ** -5
+_SERVE_HTTP_S = 600  # every HTTP call and every wait for a replica
+
+
+def _http_json(port, path, payload=None, timeout=_SERVE_HTTP_S):
+    """(status, JSON body, seconds) of one call to the proxy."""
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"},
+                                 method="POST" if data is not None else "GET")
+    t = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        body = json.loads(r.read())
+        return r.status, body, time.perf_counter() - t
+
+
+def _sse_events(port, path, payload, timeout=_SERVE_HTTP_S):
+    """The JSON events of one SSE response, without the [DONE] mark."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json", "Accept": "text/event-stream"},
+        method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        text = r.read().decode()
+    events = [e[len("data: "):] for e in text.split("\n\n") if e.startswith("data: ")]
+    return [json.loads(e) for e in events if e != "[DONE]"]
+
+
+def _completions(port, path, prompts, n_new, **extra):
+    """Phase 4's prompts as concurrent POSTs, greedy, ``n_new`` tokens
+    each (ignore_eos): the answers in prompt order, the seconds of each
+    and the wall seconds of all."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(p):
+        status, body, s = _http_json(port, path, {"prompt": p, "max_tokens": n_new,
+                                                  "temperature": 0.0, "ignore_eos": True,
+                                                  **extra})
+        _check(status == 200, f"POST {path} answered {status}")
+        return body, s
+
+    t = time.perf_counter()
+    with ThreadPoolExecutor(len(prompts)) as ex:
+        out = list(ex.map(one, prompts))
+    return [o[0] for o in out], [o[1] for o in out], time.perf_counter() - t
+
+
+def _check_token_ids(what, bodies, ref):
+    """Each answer's tokens (named by id in its logprobs) are phase 4's."""
+    for i, (body, want) in enumerate(zip(bodies, ref)):
+        got = [int(t.split(":", 1)[1]) for t in body["choices"][0]["logprobs"]["tokens"]]
+        _check(got == want, f"{what}: request {i} differs from phase 4's: {got} vs {want}")
+
+
+def _http_timings(port, path, prompts, n_new):
+    """TTFT through HTTP (one-token requests, all 8 at once) and decode
+    tokens/s (the tokens after each request's first over the wall of the
+    n_new-token requests less the median TTFT)."""
+    _, ttft, _ = _completions(port, path, prompts, 1)
+    bodies, _, wall = _completions(port, path, prompts, n_new)
+    for body in bodies:
+        _check(body["usage"]["completion_tokens"] == n_new,
+               f"an answer has {body['usage']['completion_tokens']} tokens")
+    ttft_med = statistics.median(ttft)
+    return bodies, {"ttft_s": ttft, "ttft_s_median": ttft_med, "wall_s": wall,
+                    "decode_tokens_per_s": len(prompts) * (n_new - 1)
+                    / max(wall - ttft_med, 1e-9)}
+
+
+def phase_serve_apps(shared: dict, device: str = "cuda", small: bool = False):
+    """Phase 16: Serve and the OpenAI app on this machine, the HTTP proxy
+    on the loopback. (a) build_openai_app on phase 4's configuration,
+    one replica on num_gpus=1; (b) a GPT-2 forward deployment with
+    @serve.batch on num_gpus=0.5; (c) build_disaggregated_app, a prefill
+    and a decode replica on num_gpus=0.5 each. Returns (b)'s replica's
+    kernel counts and the row. ``small`` (the CPU test): phase 4's tiny
+    stand-in for (b) too, at T=64."""
+    import asyncio
+    import dataclasses
+    import os
+
+    import ray_tpu_torch
+    from ray_tpu_torch import models, serve
+    from ray_tpu_torch.llm import LLMConfig, build_disaggregated_app, build_openai_app
+    from ray_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    sv = shared["serve"]
+    prompts, ref = sv["prompts"], sv["tokens"]
+    n_new = len(ref[0])
+    model_id = "tiny" if small else "gpt2_small"
+    # Phase 4's configuration; its weights come from the same seed.
+    cfg = LLMConfig(model=sv["model"], model_id=model_id, max_num_seqs=8,
+                    max_seq_len=1024, tokenizer="byte")
+    ids = {"logprobs": 1, "return_tokens_as_token_ids": True}
+    row = {}
+    earlier = _cluster_processes(os.getpid())
+    t_phase = time.perf_counter()
+    ray_tpu_torch.init(object_store_memory=1 << 30,
+                       **({} if device == "cuda" else {"num_gpus": 1}))
+    pids = set()
+    counts = {"launches": dict.fromkeys(_KERNELS, 0), "copies": dict.fromkeys(_COPYING, 0)}
+    try:
+        serve.start(http_host="127.0.0.1")
+        port = serve.get_proxy_port()
+
+        # (a) The OpenAI app: one replica holding the card. serve.run
+        # returns once the replica is started, not built: the time to
+        # ready runs to its first answer (a handle call, which carries no
+        # deadline; the proxy's carries 30 s).
+        t = time.perf_counter()
+        h = serve.run(build_openai_app(cfg, name="openai", device=device),
+                      name="openai", route_prefix="/v1")
+        run_s = time.perf_counter() - t
+        h.kv_snapshot.remote().result(timeout_s=_SERVE_HTTP_S)
+        ready_s = time.perf_counter() - t
+        _, listing, _ = _http_json(port, "/v1/models")
+        _check([m["id"] for m in listing["data"]] == [model_id],
+               f"GET /v1/models listed {listing}")
+        bodies, _, _ = _completions(port, "/v1/completions", prompts, n_new, **ids)
+        _check_token_ids("the OpenAI app", bodies, ref)
+        bodies, timing = _http_timings(port, "/v1/completions", prompts, n_new)
+        tok = ByteTokenizer()
+        _check([b["choices"][0]["text"] for b in bodies] == [tok.decode(r) for r in ref],
+               "the OpenAI app's texts are not phase 4's tokens decoded")
+        chat = {"messages": [{"role": "user", "content": prompts[3]}],
+                "max_tokens": n_new, "temperature": 0.0, "ignore_eos": True}
+        _, answer, _ = _http_json(port, "/v1/chat/completions", chat)
+        events = _sse_events(port, "/v1/chat/completions", {**chat, "stream": True})
+        joined = "".join(e["choices"][0]["delta"].get("content", "") for e in events)
+        _check(joined == answer["choices"][0]["message"]["content"]
+               and events[-1]["choices"][0]["finish_reason"] == "length",
+               f"the chat stream's increments {joined!r} are not its answer "
+               f"{answer['choices'][0]['message']['content']!r}")
+        row["openai"] = {"serve_run_s": run_s, "ready_s": ready_s,
+                         "tokens_equal_to_phase_4": True, "stream_events": len(events),
+                         **timing,
+                         "phase_4": {k: sv["row"].get(k) for k in
+                                     ("ttft_s_median", "decode_tokens_per_s")},
+                         "phase_14_actor": shared.get("runtime")}
+        print("[serve_apps] openai " + json.dumps(row["openai"]))
+        serve.delete("openai")
+
+        # (b) GPT-2's bf16 forward behind @serve.batch on half the card.
+        T = 64 if small else 1024
+        fcfg = dataclasses.replace(sv["model"] if small else models.gpt2_small(),
+                                   max_seq_len=T, attn_impl="flash")
+        rng = np.random.default_rng(16)
+        rows = rng.integers(0, fcfg.vocab_size, (_SERVE_FWD_ROWS, T)).tolist()
+
+        @serve.deployment(name="gpt2_forward", max_ongoing_requests=16,
+                          ray_actor_options={"num_gpus": 0.5})
+        class Forward:
+            def __init__(self, cfg, device, seed):
+                from ray_tpu_torch.ops import _kernels
+
+                for name in _COPYING:
+                    w = getattr(_kernels, name)
+                    w.launches = w.launches_fp32 = w.copies = 0
+                self.cfg, self.device = cfg, device
+                self.params = models.init_params(torch.Generator().manual_seed(seed),
+                                                 cfg, device=device)
+                self.sizes = []
+
+            @serve.batch(max_batch_size=4, batch_wait_timeout_s=1.0)
+            async def __call__(self, batch):
+                self.sizes.append(len(batch))
+                return await asyncio.get_running_loop().run_in_executor(
+                    None, self.forward, batch)
+
+            def forward(self, batch):
+                with torch.inference_mode():
+                    x = torch.tensor(batch, device=self.device)
+                    out = models.forward(self.params, x, self.cfg)[:, -_SERVE_FWD_LAST:]
+                    return list(out.float().cpu())
+
+            def stats(self):
+                return {"sizes": list(self.sizes), "pid": os.getpid(),
+                        "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                        **_worker_counts()}
+
+        t = time.perf_counter()
+        h = serve.run(Forward.bind(fcfg, device, 16), name="forward", proxy=False)
+        fwd_run_s = time.perf_counter() - t
+        responses = [h.remote(r) for r in rows]
+        got = [r.result(timeout_s=_SERVE_HTTP_S) for r in responses]
+        fwd_s = time.perf_counter() - t
+        stats = h.stats.remote().result(timeout_s=_SERVE_HTTP_S)
+        pids.add(stats.pop("pid"))
+        # The direct forward here compares; its launches do not count.
+        from ray_tpu_torch.ops import _kernels
+
+        saved = [(w, w.launches, w.launches_fp32, w.copies)
+                 for w in (getattr(_kernels, name) for name in _COPYING)]
+        params = models.init_params(torch.Generator().manual_seed(16), fcfg, device=device)
+        worst = 0.0
+        with torch.inference_mode():
+            for r, g in zip(rows, got):
+                want = models.forward(params, torch.tensor([r], device=device),
+                                      fcfg)[0, -_SERVE_FWD_LAST:].float().cpu()
+                _check(g.shape == want.shape and bool(g.isfinite().all()),
+                       f"a forward row came back as {tuple(g.shape)} / non-finite")
+                worst = max(worst, ((g - want).abs().max() / want.abs().max()).item())
+        del params
+        for w, n, n_fp32, copies in saved:
+            w.launches, w.launches_fp32, w.copies = n, n_fp32, copies
+        _check(worst <= _SERVE_FWD_TOL,
+               f"a batched row's logits differ from its direct forward by {worst} of "
+               f"their max (limit {_SERVE_FWD_TOL})")
+        _check(sorted(stats["sizes"]) == [4, 4], f"the replica's batches: {stats['sizes']}")
+        n_batches = len(stats["sizes"])
+        flash = stats["launches"]["flash_fwd" if fcfg.dtype != "float32"
+                                  else "flash_fwd_fp32"]
+        _check(flash == n_batches * fcfg.n_layers * (device == "cuda"),
+               f"the forward replica launched the flash forward {flash} times for "
+               f"{n_batches} batches of {fcfg.n_layers} layers")
+        _check(stats["visible"] == "0", f"the forward replica saw "
+                                        f"CUDA_VISIBLE_DEVICES={stats['visible']!r}")
+        counts = _add_counts(counts, stats)
+        row["forward"] = {"rows": len(rows), "seq": T, "batch_sizes": stats["sizes"],
+                          "worst_share_of_max_logit": worst, "limit": _SERVE_FWD_TOL,
+                          "serve_run_s": fwd_run_s, "seconds": fwd_s,
+                          "launches": stats["launches"]}
+        print("[serve_apps] forward " + json.dumps(row["forward"]))
+        serve.delete("forward")
+
+        # (c) Disaggregated: a prefill and a decode replica sharing the card.
+        t = time.perf_counter()
+        dis = serve.run(build_disaggregated_app(cfg, name="disagg", device=device,
+                                                ray_actor_options={"num_gpus": 0.5}),
+                        name="disagg", route_prefix="/v1")
+        run_s = time.perf_counter() - t
+        dis.stats.remote().result(timeout_s=_SERVE_HTTP_S)  # both pools answer
+        ready_s = time.perf_counter() - t
+        bodies, _, _ = _completions(port, "/v1/completions", prompts, n_new, **ids)
+        _check_token_ids("the disaggregated app", bodies, ref)
+        _, timing = _http_timings(port, "/v1/completions", prompts, n_new)
+        hand = dis.stats.remote().result(timeout_s=_SERVE_HTTP_S)["handoff"]
+        row["disaggregated"] = {
+            "serve_run_s": run_s, "ready_s": ready_s, "tokens_equal_to_phase_4": True,
+            **timing,
+            "handoffs": hand["count"], "handoff_bytes": hand["bytes"],
+            "handoff_ms_median": hand["latency_p50_s"] * 1e3,
+            "handoff_ms_p95": hand["latency_p95_s"] * 1e3,
+            "handoff_share_of_ttft": hand["latency_p50_s"] / timing["ttft_s_median"]}
+        print("[serve_apps] disaggregated " + json.dumps(row["disaggregated"]))
+        pids |= _cluster_processes(os.getpid()) - earlier
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+    deadline = time.time() + 10
+    while _live(pids) and time.time() < deadline:
+        time.sleep(0.1)
+    row["pids_left_after_shutdown"] = _live(pids)
+    row["phase_s"] = time.perf_counter() - t_phase
+    _check(not row["pids_left_after_shutdown"],
+           f"processes left after shutdown(): {row['pids_left_after_shutdown']}")
+    print("[serve_apps] " + json.dumps({k: row[k] for k in ("phase_s",
+                                                            "pids_left_after_shutdown")}))
+    return {**counts, "row": row}
+
+
 # The main path's kernels as the kernels line names them: (the wrapper in
 # ray_tpu_torch.ops._kernels that launches it, whether it is the fp32
 # kernel, the source under ray_tpu_torch/csrc that holds it, the line of
@@ -3695,7 +4004,8 @@ def main() -> int:
              ("rllib", lambda: phase_rllib(shared), False),
              ("rllib_more", lambda: phase_rllib_more(shared), False),
              ("runtime", lambda: phase_runtime(shared), False),
-             ("dag", lambda: phase_dag(shared), False))
+             ("dag", lambda: phase_dag(shared), False),
+             ("serve_apps", lambda: phase_serve_apps(shared), False))
     launches = dict.fromkeys(_KERNELS, 0)
     for name, run, must_launch in paths:
         for w in wrappers:
@@ -3703,7 +4013,8 @@ def main() -> int:
         result = run()
         total = {"launches": _launch_counts(),
                  "copies": {w.__name__: w.copies for w in wrappers}}
-        if name in ("parallel", "train_backend", "rllib_more", "runtime", "dag"):
+        if name in ("parallel", "train_backend", "rllib_more", "runtime", "dag",
+                    "serve_apps"):
             total = _add_counts(total, result)
         counted, copies = total["launches"], total["copies"]
         print(f"[{name}] launches " + json.dumps(counted))

@@ -1,13 +1,17 @@
-"""ray_tpu_torch.llm: the single-device LLM engine (port of the engine
-of ray_tpu.llm): dense or paged KV (kv_pages), prefix caching, chunked
-prefill, extended sampling, guided JSON (guided), speculative decoding,
-multi-LoRA (lora) and .npz checkpoints; tensor- and pipeline-parallel
-serving; AsyncLLMEngine, a background thread stepping the engine for
-concurrent callers. Serving deployments and batch stages come with later
-slices."""
+"""ray_tpu_torch.llm: the LLM engine (port of the engine of ray_tpu.llm):
+dense or paged KV (kv_pages), prefix caching, chunked prefill, extended
+sampling, guided JSON (guided), speculative decoding, multi-LoRA (lora)
+and .npz checkpoints; tensor- and pipeline-parallel serving;
+AsyncLLMEngine, a background thread stepping the engine for concurrent
+callers; and OpenAI-compatible Serve deployments (serving: LLMServer,
+the disaggregated PrefillServer/DecodeServer/LLMRouter, and the app
+builders). Batch stages over Data come with ROADMAP item 6e."""
 
 from ray_tpu_torch.llm.config import LLMConfig, SamplingParams
 from ray_tpu_torch.llm.engine import AsyncLLMEngine, LLMEngine, RequestOutput
+from ray_tpu_torch.llm.serving import (DecodeServer, LLMRouter, LLMServer,
+                                       PrefillServer, build_disaggregated_app,
+                                       build_openai_app)
 
 __all__ = [
     "LLMConfig",
@@ -15,4 +19,10 @@ __all__ = [
     "LLMEngine",
     "AsyncLLMEngine",
     "RequestOutput",
+    "LLMServer",
+    "PrefillServer",
+    "DecodeServer",
+    "LLMRouter",
+    "build_openai_app",
+    "build_disaggregated_app",
 ]

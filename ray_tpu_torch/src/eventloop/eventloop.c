@@ -1257,6 +1257,13 @@ static void *reader_main(void *arg)
                  * can complete them in one pass */
                 if ((size_t)flen + 4 > cap) {
                     size_t ncap = cap;
+                    /* the spans recorded in this pass point into buf:
+                     * deliver them before the buffer moves */
+                    if (ns > 0) {
+                        if (deliver_batch(c, buf, spans, ns))
+                            goto out_free;
+                        ns = 0;
+                    }
                     while (ncap < (size_t)flen + 4)
                         ncap *= 2;
                     /* compact first so pos==0 */

@@ -1,8 +1,9 @@
 """ray_tpu_torch.util: placement groups, scheduling strategies, custom
-serializers, user trace spans, actor pools, queues and host collective
-groups (``util.collective``; reference: ray.util). The rest of
-ray_tpu.util (metrics, the state API, multiprocessing, dask, joblib)
-waits for ROADMAP item 6g."""
+serializers, user trace spans, actor pools, queues, host collective
+groups (``util.collective``) and user metrics (``util.metrics``:
+Counter, Gauge, Histogram, the Prometheus text); reference: ray.util.
+The rest of ray_tpu.util (the metrics exporter, the state API,
+multiprocessing, dask, joblib) waits for ROADMAP item 6g."""
 
 from ray_tpu_torch.util.actor_pool import ActorPool
 from ray_tpu_torch.util.placement_group import (

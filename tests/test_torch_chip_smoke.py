@@ -566,12 +566,34 @@ def test_async_phase_runs_on_the_cpu(capsys):
     arriving = row["arriving"]
     assert max(arriving["steps_per_request"]) <= 32
     # from the step that queued it, each takes its 32 tokens' 31 steps
-    assert [s - q for s, q in zip(arriving["steps_per_request"],
-                                  arriving["steps_to_queue"])] == [31] * 8
+    # (steps_per_request counts from the hand-over, the two others from
+    # the caller's read of the count)
+    assert [s + h - q for s, h, q in zip(arriving["steps_per_request"],
+                                         arriving["steps_to_hand_over"],
+                                         arriving["steps_to_queue"])] == [31] * 8
     assert all(0 <= h <= q for h, q in zip(arriving["steps_to_hand_over"],
                                            arriving["steps_to_queue"]))
     assert row["deadline"]["raised_where"] == ["llm_decode"] * 2
     assert "[async_llm] " in capsys.readouterr().out
+
+
+def _arriving_row(steps, to_hand_over, to_queue):
+    return {"steps_per_request": steps, "steps_to_hand_over": to_hand_over,
+            "steps_to_queue": to_queue}
+
+
+def test_arriving_check_counts_from_the_hand_over():
+    """The arriving callers' bound (32 steps for 32 tokens) counts from
+    each request's hand-over: a step that ends between the caller's read
+    of the count and its hand-over is not the engine's."""
+    # the late caller of the failures seen on the card: handed over a step after its
+    # read, queued at the next, 31 steps from there (32 from the hand-over)
+    chip_smoke._check_arriving(
+        _arriving_row([32] * 8, [1, 0, 0, 0, 0, 0, 0, 0], [2, 1, 1, 1, 1, 1, 1, 1]), 32)
+    with pytest.raises(SystemExit):
+        chip_smoke._check_arriving(
+            _arriving_row([32, 33, 32, 32, 32, 32, 32, 32], [0] * 8, [1, 2, 1, 1, 1, 1, 1, 1]),
+            32)
 
 
 def test_runtime_phase_runs_on_the_cpu(capsys):
@@ -644,3 +666,38 @@ def test_dag_phase_runs_on_the_cpu(capsys):
     assert set(out["launches"]) == set(chip_smoke._KERNELS)
     assert set(out["launches"].values()) == {0}
     assert "[dag] trainer " in capsys.readouterr().out
+
+
+def test_serve_apps_phase_runs_on_the_cpu(capsys):
+    """Phase 16 end to end on the CPU (a tiny model standing in for phase
+    4's and for (b)'s GPT-2, at T=64): the OpenAI app and the
+    disaggregated app give phase 4's tokens over HTTP, the batched forward
+    deployment's rows are within its limit in batches of four, and no
+    process is left; the forward replica's counts are added (none
+    launches a kernel on the CPU)."""
+    import dataclasses
+
+    from ray_tpu_torch import models
+    from ray_tpu_torch.llm import LLMConfig, LLMEngine, SamplingParams
+
+    cfg = dataclasses.replace(models.tiny(vocab_size=512, max_seq_len=1024), dtype="float32")
+    # the weights the replicas build from LLMConfig's seed
+    params = models.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    eng = LLMEngine(LLMConfig(model=cfg, max_num_seqs=8, max_seq_len=1024, tokenizer="byte"),
+                    params, device="cpu")
+    words = "the engine answers every request with thirty two tokens "
+    prompts = [(words * 5)[:n] for n in (11, 24, 30, 50, 60, 100, 200, 240)]
+    outs = eng.generate(prompts, SamplingParams(max_tokens=8, ignore_eos=True))
+    shared = {"serve": {"params": params, "prompts": prompts, "model": cfg, "row": {},
+                        "tokens": [o.token_ids for o in outs]}}
+    out = chip_smoke.phase_serve_apps(shared, device="cpu", small=True)
+    row = out["row"]
+    assert row["openai"]["tokens_equal_to_phase_4"]
+    assert row["disaggregated"]["tokens_equal_to_phase_4"]
+    assert row["disaggregated"]["handoffs"] >= 3 * len(prompts)
+    assert sorted(row["forward"]["batch_sizes"]) == [4, 4]
+    assert row["forward"]["worst_share_of_max_logit"] <= chip_smoke._SERVE_FWD_TOL
+    assert row["pids_left_after_shutdown"] == []
+    assert set(out["launches"]) == set(chip_smoke._KERNELS)
+    assert set(out["launches"].values()) == {0}
+    assert "[serve_apps] disaggregated " in capsys.readouterr().out

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from ray_tpu_torch import interop, models, parallel, rllib, train
-from ray_tpu_torch.llm import LLMConfig, LLMEngine, kv_pages, lora, model_runner
+from ray_tpu_torch.llm import LLMConfig, LLMEngine, LLMServer, kv_pages, lora, model_runner
 from ray_tpu_torch.ops import layers
 from ray_tpu_torch.ops.optim import FusedClipAdamW
 
@@ -64,7 +64,11 @@ missing = sorted(({"ray_tpu_torch.ops.moe", "ray_tpu_torch.ops.optim",
                      "util.collective", "dag", "dag.nodes", "dag.channel_exec",
                      "dag.collective_node", "experimental", "experimental.channel",
                      "experimental.tcp_channel", "experimental.device_channel",
-                     "train.worker_group", "train.trainer")})
+                     "train.worker_group", "train.trainer", "util.metrics",
+                     "serve", "serve.api", "serve.batching", "serve.controller",
+                     "serve.deployment", "serve.grpc_proxy", "serve.handle",
+                     "serve.multiplex", "serve.proxy", "serve.replica",
+                     "serve.scheduler", "llm.serving")})
                  - set(sys.modules))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "ray_tpu"
@@ -79,13 +83,13 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, missing, bad = out.stdout.split(" ", 2)
-    assert int(n_modules) >= 125
+    assert int(n_modules) >= 138
     assert missing == "[]"  # the MoE ops, the optimizers, the parallel slice,
     # the LLM plane's paged KV, LoRA, guided and pipeline modules, the
     # Train backend, RLlib (multi-agent and DreamerV3 too), Tune's
     # Trainable, the exceptions and the task/actor core (_private, the
-    # API, the accelerator managers, util), the DAGs and their channels, util.collective
-    # and the trainer were imported
+    # API, the accelerator managers, util), the DAGs and their channels, util.collective,
+    # the trainer, Serve, util.metrics and the LLM's serving deployments were imported
     assert bad.strip() == "[]"
 
 
@@ -100,6 +104,7 @@ ENTRY_POINTS = {
     "rope_frequencies": lambda: layers.rope_frequencies(8, 4),
     "params_from_jax": lambda: interop.params_from_jax({"w": np.zeros(2)}),
     "LLMEngine": lambda: LLMEngine(LLMConfig(model="tiny")),
+    "LLMServer": lambda: LLMServer(LLMConfig(model="tiny")),
     "MeshConfig.build": lambda: parallel.MeshConfig().build(),
     "TorchBackend.on_worker_setup": lambda: train.TorchBackend().on_worker_setup(
         0, 1, "g", train.TorchConfig(distributed="on")),
@@ -142,3 +147,16 @@ def test_entry_point_defaults_to_cuda(entry):
         pytest.skip("this machine has a CUDA device; the default succeeds")
     with pytest.raises((RuntimeError, AssertionError)):
         ENTRY_POINTS[entry]()
+
+
+def test_package_docstrings_name_what_is_ported():
+    """The package and the LLM plane say that Serve and the serving
+    deployments are here (no longer a later slice), and util names its
+    metrics."""
+    import ray_tpu_torch
+    from ray_tpu_torch import llm, util
+
+    assert "Serve" in ray_tpu_torch.__doc__ and "serve" in ray_tpu_torch._LAZY
+    assert "later slices" not in llm.__doc__ and "LLMServer" in llm.__doc__
+    assert {"LLMServer", "build_openai_app", "build_disaggregated_app"} <= set(llm.__all__)
+    assert "util.metrics" in util.__doc__

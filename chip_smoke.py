@@ -228,16 +228,50 @@ Phases, in order; any failed check exits non-zero:
                (a)'s app is deleted: phase 4's prompts over HTTP give
                phase 4's tokens; the handoff's ms (median) and its share
                of TTFT. After serve.shutdown() and shutdown() no process
-               the cluster started is left.
+               the cluster started is left. serve.run returns once a
+               replica's constructor has returned: the first request
+               after it (GET /v1/models over HTTP) must be answered
+               200, not shed with a 408.
+ 17. rllib_remote — the main path, part 15: RLlib's remote groups on the
+               core. (a) PPO on the script's CartPole at its defaults
+               with 2 remote env runners (CPU actors, modules on the
+               CPU) and 2 remote learners on the card (num_gpus=0.5
+               each), 3 iterations: every loss finite, the learners'
+               weights equal bit for bit after each iteration, at least
+               the train batch sampled each time; (b) IMPALA at its
+               defaults (2 runners, 2 requests in flight each, batch
+               512), 3 iterations: at least one learner update each,
+               finite losses, the first mean_rho in (0.5, 2); (c) APPO
+               at its defaults, 1 iteration, the same checks. Env
+               steps/s and update ms beside phase 12's local numbers.
+               No process left after shutdown().
+ 18. data   — the main path, part 16: ray_tpu_torch.data. (a) GPT-2
+               124M's tokens for 6 steps at B=8, T=1024, drawn once
+               from phase 5's seed, in a Dataset (from_numpy) whose
+               iter_torch_batches(device="cuda") feeds 6 bf16 steps of
+               phase 5's configuration: the losses equal a direct run on
+               the same tokens bit for bit (two runs of each, in
+               turns), each kernel launches once per layer per step;
+               tokens/s through the Dataset beside the direct run's and
+               phase 5's. (b) build_llm_processor on phase 4's
+               configuration (its weights from the same seed) on an
+               actor pool of one worker holding a GPU lease: phase 4's
+               8 prompts twice, greedy, 32 tokens, give phase 4's texts;
+               tokens/s (end to end, and the second batch's) beside
+               phase 4's; the pool's stats. (c) which of pyarrow, pandas,
+               PIL and tensorflow this machine has. No process left
+               after shutdown().
 
-Each path of phases 3-16 is driven with the kernels' launch and copy
+Each path of phases 3-18 is driven with the kernels' launch and copy
 counts set to 0 just before it and read just after; launches made in
 phase 2 do not count, those of the ranks of phases 7, 9 and 13, of
 phase 14's workers, of phase 15's trainer worker (its last report
-carries its counts) and of phase 16's forward replica do. No path may make the
+carries its counts), of phase 16's forward replica and of phase 18's
+pool worker (a stage fused after the LLM stage reports them) do;
+phase 17's learners and runners run MLPs and report none. No path may make the
 wrappers copy an input (the model's q, k, v are views that TMA reads in
 place, on each rank's shard too). The kernels line sums the launches of
-phases 3-16, one entry for each kernel: a wrapper
+phases 3-18, one entry for each kernel: a wrapper
 sends bf16/fp16 to a wgmma kernel and fp32 to a kernel of its own
 (every product in 3xTF32 on the tensor cores), and counts the two apart.
 Phase 2 also requires two launches of the fp32 forward and of the fp32
@@ -248,8 +282,10 @@ whole backward at GPT-2 124M's training shape.
 
 Phases 11, 12 and 13 reach no Pallas kernel's counterpart (the LLM
 runner, RLlib's MLPs and DreamerV3's GRU and MLPs launch none), nor do
-phase 15's engines and edges, nor phase 16's LLM replicas; their
-launches are counted all the same.
+phase 15's engines and edges, nor phase 16's LLM replicas, nor phase
+17's learners and runners, nor phase 18's LLM pool worker; their
+launches are counted all the same, but for phase 17's workers, which
+are not asked.
 
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
@@ -2527,6 +2563,7 @@ def phase_rllib(shared: dict, device: str = "cuda", ppo_iters: int = 5):
         row[name] = {"batch_rows": len(b), "losses": res,
                      "learner_update_ms": _update_ms(algo.learner_group.local, b)}
     print("[rllib] " + json.dumps(row))
+    shared["rllib"] = row
     return row
 
 
@@ -3760,16 +3797,21 @@ def phase_serve_apps(shared: dict, device: str = "cuda", small: bool = False):
         port = serve.get_proxy_port()
 
         # (a) The OpenAI app: one replica holding the card. serve.run
-        # returns once the replica is started, not built: the time to
-        # ready runs to its first answer (a handle call, which carries no
-        # deadline; the proxy's carries 30 s).
+        # returns once the replica's constructor has returned, so the
+        # first request after it, over HTTP (the proxy's carries a 30 s
+        # deadline), is answered at once, without a 408.
         t = time.perf_counter()
-        h = serve.run(build_openai_app(cfg, name="openai", device=device),
-                      name="openai", route_prefix="/v1")
+        serve.run(build_openai_app(cfg, name="openai", device=device),
+                  name="openai", route_prefix="/v1")
         run_s = time.perf_counter() - t
-        h.kv_snapshot.remote().result(timeout_s=_SERVE_HTTP_S)
+        import urllib.error
+
+        try:
+            status, listing, first_s = _http_json(port, "/v1/models")
+        except urllib.error.HTTPError as e:  # a 408 would be the replica still building
+            status, listing, first_s = e.code, None, None
         ready_s = time.perf_counter() - t
-        _, listing, _ = _http_json(port, "/v1/models")
+        _check(status == 200, f"the first request after serve.run answered {status}")
         _check([m["id"] for m in listing["data"]] == [model_id],
                f"GET /v1/models listed {listing}")
         bodies, _, _ = _completions(port, "/v1/completions", prompts, n_new, **ids)
@@ -3788,6 +3830,7 @@ def phase_serve_apps(shared: dict, device: str = "cuda", small: bool = False):
                f"the chat stream's increments {joined!r} are not its answer "
                f"{answer['choices'][0]['message']['content']!r}")
         row["openai"] = {"serve_run_s": run_s, "ready_s": ready_s,
+                         "first_request_s": first_s,
                          "tokens_equal_to_phase_4": True, "stream_events": len(events),
                          **timing,
                          "phase_4": {k: sv["row"].get(k) for k in
@@ -3915,6 +3958,322 @@ def phase_serve_apps(shared: dict, device: str = "cuda", small: bool = False):
     return {**counts, "row": row}
 
 
+# Phase 17 (rllib_remote): RLlib's remote groups on the core. The runners
+# are CPU actors; the learners hold fractional GPU leases when the device
+# is the card (two share it). Each learner is a TorchLearner of MLPs, and
+# each runner steps the script's CartPole: neither launches a flash kernel.
+_RL_REMOTE_ITERS = 3
+_RL_REMOTE_WAIT_S = 600  # every get of the phase
+
+
+def _learner_weights_equal(rt, learners) -> bool:
+    """Whether every learner actor holds the same weights, bit for bit."""
+    from ray_tpu_torch.ops.tree import flatten
+
+    per = [flatten(w) for w in rt.get([a.get_weights.remote() for a in learners],
+                                      timeout=_RL_REMOTE_WAIT_S)]
+    return all(np.array_equal(per[0][k], p[k]) for p in per[1:] for k in per[0])
+
+
+def _timed_updates(algo, attr="update_epochs", owner=None):
+    """Wrap a learner call (the group's update_epochs, or the local
+    learner's update) to record the host ms of each call."""
+    owner = owner if owner is not None else algo.learner_group
+    times = []
+    real = getattr(owner, attr)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(owner, attr, timed)
+    return times
+
+
+def phase_rllib_remote(shared: dict, device: str = "cuda", small: bool = False):
+    """Phase 17: (a) PPO on the script's CartPole at its defaults with 2
+    remote env runners (CPU actors) and 2 remote learners on ``device``
+    (for the card, two num_gpus=0.5 leases), 3 iterations; (b) IMPALA
+    at its defaults (2 runners, 2 requests in flight each, batch 512), 3
+    iterations; (c) APPO at its defaults, 1 iteration. Returns the
+    workers' kernel counts (none is read: the learners and runners run
+    MLPs, which launch no flash kernel) and the row. ``small`` (the CPU
+    test): 2 PPO iterations and 2 of IMPALA."""
+    import os
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import APPOConfig, IMPALAConfig, PPOConfig
+
+    iters = 2 if small else _RL_REMOTE_ITERS
+    local = shared.get("rllib") or {}
+    row = {"device": device}
+    earlier = _cluster_processes(os.getpid())
+    t_phase = time.perf_counter()
+    rt.init(object_store_memory=256 << 20, **({} if device == "cuda" else {"num_gpus": 1}))
+    pids = set()
+    try:
+        # (a) PPO: the runners and learners start together in build().
+        t = time.perf_counter()
+        ppo = (PPOConfig().environment(CartPole).env_runners(num_env_runners=2)
+               .learners(num_learners=2, device=device).debugging(seed=0).build())
+        built_s = time.perf_counter() - t
+        sampled = _timed_sampling(ppo)
+        update_ms = _timed_updates(ppo)
+        learners = list(ppo.learner_group.remotes)
+        keys = ("total_loss", "policy_loss", "vf_loss", "entropy", "mean_kl", "grad_norm")
+        results, equal, iter_s = [], [], []
+        for _ in range(iters):
+            t = time.perf_counter()
+            r = ppo.train()
+            iter_s.append(time.perf_counter() - t)
+            results.append(r)
+            equal.append(_learner_weights_equal(rt, learners))
+        pids |= _cluster_processes(os.getpid()) - earlier
+        _check(all(_finite(r, keys) for r in results), f"PPO's losses are not finite: {results}")
+        _check(all(equal), f"the two learners' weights differ after an iteration: {equal}")
+        steps = [r["num_env_steps_sampled"] for r in results]
+        _check(all(s >= ppo.algo_config.train_batch_size for s in steps),
+               f"PPO sampled {steps} env steps, fewer than its train batch")
+        row["ppo"] = {"iterations": iters, "build_s": built_s, "iteration_s": iter_s,
+                      "total_loss": [r["total_loss"] for r in results],
+                      "env_steps_sampled": steps, "learners_bitwise_equal": equal,
+                      "env_steps_per_s_sampled": sampled["rows"] / sampled["s"],
+                      "update_epochs_ms": update_ms,
+                      "phase_12_local": {k: (local.get("ppo") or {}).get(k) for k in (
+                          "env_steps_per_s_sampled", "learner_update_ms", "wall_s")}}
+        print("[rllib_remote] ppo " + json.dumps(row["ppo"]))
+        ppo.stop()
+
+        # (b) IMPALA and (c) APPO at their defaults.
+        for name, c, n, ratio in (("impala", IMPALAConfig(), iters, "mean_rho"),
+                                  ("appo", APPOConfig(), 1, "mean_ratio")):
+            t = time.perf_counter()
+            algo = c.environment(CartPole).learners(device=device).debugging(seed=4).build()
+            built_s = time.perf_counter() - t
+            upd = _timed_updates(algo, "update", algo.learner_group.local)
+            res, iter_s = [], []
+            for _ in range(n):
+                t = time.perf_counter()
+                res.append(algo.train())
+                iter_s.append(time.perf_counter() - t)
+            pids |= _cluster_processes(os.getpid()) - earlier
+            _check(all(r["num_learner_updates"] >= 1 for r in res)
+                   and all(_finite(r, ("total_loss", "policy_loss", "vf_loss", "grad_norm"))
+                           for r in res), f"{name} did not learn with finite losses: {res}")
+            _check(0.5 < res[0][ratio] < 2.0,
+                   f"{name}'s first {ratio} {res[0][ratio]} is not in (0.5, 2)")
+            # The first iteration waits for the runners' start (a worker,
+            # torch, the environments); the rate is of the later ones.
+            later = sum(r["num_env_steps_sampled"] for r in res[1:])
+            row[name] = {"iterations": n, "build_s": built_s, "iteration_s": iter_s,
+                         "learner_updates": [r["num_learner_updates"] for r in res],
+                         ratio: [r[ratio] for r in res],
+                         "total_loss": [r["total_loss"] for r in res],
+                         "env_steps_per_s_after_first": (later / sum(iter_s[1:])
+                                                         if n > 1 else None),
+                         "learner_update_ms_median": statistics.median(upd),
+                         "phase_12_local_update_ms": (local.get(name) or {}).get(
+                             "learner_update_ms")}
+            print(f"[rllib_remote] {name} " + json.dumps(row[name]))
+            algo.stop()
+    finally:
+        rt.shutdown()
+    deadline = time.time() + 10
+    while _live(pids) and time.time() < deadline:
+        time.sleep(0.1)
+    row["pids_left_after_shutdown"] = _live(pids)
+    row["phase_s"] = time.perf_counter() - t_phase
+    _check(not row["pids_left_after_shutdown"],
+           f"processes left after shutdown(): {row['pids_left_after_shutdown']}")
+    print("[rllib_remote] " + json.dumps({k: row[k] for k in ("phase_s",
+                                                              "pids_left_after_shutdown")}))
+    return {"launches": dict.fromkeys(_KERNELS, 0), "copies": dict.fromkeys(_COPYING, 0),
+            "row": row}
+
+
+# Phase 18 (data): ray_tpu_torch.data feeding phase 5's training, and
+# batch inference over an actor pool on the card.
+_DATA_STEPS = 6
+_DATA_WAIT_S = 600  # the pool's wait for each block
+_OPTIONAL = ("pyarrow", "pandas", "PIL", "tensorflow")
+
+
+def _stamp_batch(batch):
+    """A map_batches stage fused after the LLM stage, run in the pool's
+    worker as each batch leaves the engine: the time it left, and the
+    worker's kernel counts."""
+    n = len(batch["prompt"])
+    out = dict(batch)
+    out["done_at"] = np.full(n, time.time())
+    out["counts"] = np.array([json.dumps(_worker_counts())] * n, dtype=object)
+    return out
+
+
+def _optional_libraries() -> dict:
+    """Which of Data's optional libraries this machine has (found by
+    module spec, none imported), with the installed version."""
+    import importlib.metadata
+    import importlib.util
+
+    dist = {"PIL": "pillow"}
+    found = {}
+    for name in _OPTIONAL:
+        if importlib.util.find_spec(name) is None:
+            found[name] = "missing"
+            continue
+        try:
+            found[name] = importlib.metadata.version(dist.get(name, name))
+        except importlib.metadata.PackageNotFoundError:
+            found[name] = "found"
+    return found
+
+
+def phase_data(shared: dict, device: str = "cuda", small: bool = False):
+    """Phase 18: (a) a Dataset (from_numpy) of phase 5's GPT-2 tokens, B=8,
+    T=1024, drawn once from phase 5's seed, feeds 6 bf16 steps of phase
+    5's configuration through iter_torch_batches(device=...): the losses
+    equal a direct run on the same tokens bit for bit (two runs of each,
+    in turns), and each kernel launches once per layer per step; (b) build_llm_processor on phase
+    4's configuration (its weights from the same seed) over an actor pool
+    of one worker with a GPU lease: phase 4's 8 prompts, twice (two
+    batches of 8), greedy, 32 tokens, give phase 4's texts; (c) which of
+    Data's optional libraries this machine has. Returns the pool worker's
+    kernel counts and the row. ``small`` (the CPU test): a tiny model at
+    B=2, T=32, and phase 4's tiny stand-in."""
+    import os
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch import models
+    from ray_tpu_torch.llm import LLMConfig, SamplingParams, build_llm_processor
+    from ray_tpu_torch.llm.tokenizer import ByteTokenizer
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops.optim import FusedClipAdamW
+
+    row = {"device": device, "optional_libraries": _optional_libraries()}
+    print("[data] optional libraries " + json.dumps(row["optional_libraries"]))
+    t_phase = time.perf_counter()
+
+    # (a) The Dataset-fed train step against the direct one.
+    cfg, B, T = _dag_train_setup(small)
+    kernels = (_kernels.flash_fwd, _kernels.flash_bwd_dq, _kernels.flash_bwd_dkv)
+    gen = torch.Generator(device=device).manual_seed(0)  # phase 5's seed
+    tokens = torch.randint(0, cfg.vocab_size, (_DATA_STEPS * B, T + 1), generator=gen,
+                           device=device).cpu().numpy()
+    opt = FusedClipAdamW(learning_rate=3e-4, weight_decay=0.1, clip_norm=1.0)
+    step = models.make_train_step(cfg, opt)
+    launches = [cfg.n_layers if device == "cuda" else 0] * 3
+
+    def run(batches):
+        state = models.init_train_state(torch.Generator(device=device).manual_seed(0),
+                                        cfg, opt, device=device)
+        losses, ms = [], []
+        it = iter(batches)
+        for _ in range(_DATA_STEPS):
+            before = [k.launches for k in kernels]
+            t0 = time.perf_counter()
+            batch = next(it)
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"].item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            per_step = [k.launches - b for k, b in zip(kernels, before)]
+            _check(per_step == launches,
+                   f"a step launched {per_step} (fwd, dq, dkv), expected {launches}")
+        return losses, ms
+
+    def direct_batches():
+        return ({"tokens": torch.from_numpy(tokens[i * B:(i + 1) * B]).to(device)}
+                for i in range(_DATA_STEPS))
+
+    def fed_batches():
+        return ({"tokens": b["data"]} for b in rd.from_numpy(tokens).iter_torch_batches(
+            batch_size=B, device=device, dtypes=torch.int64))
+
+    # In turns (direct, fed, fed, direct): the host's time drifts.
+    runs = {"direct": [], "fed": []}
+    for name in ("direct", "fed", "fed", "direct"):
+        runs[name].append(run(direct_batches() if name == "direct" else fed_batches()))
+    direct, fed = runs["direct"][0][0], runs["fed"][0][0]
+    _check(all(r[0] == direct for r in runs["direct"] + runs["fed"]),
+           f"the Dataset-fed losses {[r[0] for r in runs['fed']]} differ from the direct "
+           f"run's {[r[0] for r in runs['direct']]}")
+    _check(all(math.isfinite(x) for x in fed), f"non-finite losses: {fed}")
+    fed_ms = [ms for r in runs["fed"] for ms in r[1]]
+    direct_ms = [ms for r in runs["direct"] for ms in r[1]]
+    fed_med = statistics.median(ms for r in runs["fed"] for ms in r[1][1:])
+    direct_med = statistics.median(ms for r in runs["direct"] for ms in r[1][1:])
+    phase5_ms = shared.get("gpt2_bf16_step_ms_median")
+    row["train"] = {"batch": B, "seq": T, "steps": _DATA_STEPS, "losses": fed,
+                    "bitwise_equal_to_direct": True, "runs_each": 2, "fed_step_ms": fed_ms,
+                    "direct_step_ms": direct_ms,
+                    "fed_tokens_per_s": B * T / (fed_med / 1e3),
+                    "direct_tokens_per_s": B * T / (direct_med / 1e3),
+                    "phase_5_tokens_per_s": B * T / (phase5_ms / 1e3) if phase5_ms else None,
+                    "launches_per_step": launches}
+    print("[data] train " + json.dumps(row["train"]))
+
+    # (b) Batch inference on an actor pool: one worker, a GPU lease.
+    sv = shared["serve"]
+    prompts, ref = sv["prompts"], sv["tokens"]
+    n_new = len(ref[0])
+    texts = [ByteTokenizer().decode(r) for r in ref]
+    llm_cfg = LLMConfig(model=sv["model"], max_num_seqs=8, max_seq_len=1024, tokenizer="byte")
+    # On the card the stage's own default (a GPU pool of one); the CPU
+    # test asks for the same pool, which device="cpu" would not make.
+    pool = (None if device == "cuda" else
+            rd.ActorPoolStrategy(min_size=1, max_size=1, resources={"GPU": 1}))
+    earlier = _cluster_processes(os.getpid())
+    rt.init(object_store_memory=256 << 20, **({} if device == "cuda" else {"num_gpus": 1}))
+    pids = set()
+    ctx = rd.DataContext.get_current()
+    try:
+        ds = build_llm_processor(
+            rd.from_items([{"prompt": p} for p in prompts * 2]), llm_cfg,
+            sampling=SamplingParams(max_tokens=n_new, ignore_eos=True), batch_size=len(prompts),
+            device=device, compute=pool).map_batches(_stamp_batch)
+        op = ds._plan[-2]
+        _check(op.compute is not None and op.compute.resources == {"GPU": 1},
+               f"the LLM stage's pool asks for {op.compute}")
+        op.compute.block_timeout_s = _DATA_WAIT_S
+        t = time.perf_counter()
+        rows = ds.take_all()
+        wall = time.perf_counter() - t
+        pids |= _cluster_processes(os.getpid()) - earlier
+        stats = dict(ctx.stats.get("actor_pool") or {})
+    finally:
+        rt.shutdown()
+    got = [r["generated_text"] for r in rows]
+    _check(got == texts * 2, "the batch stage's texts are not phase 4's: "
+                             f"{[i for i, (a, b) in enumerate(zip(got, texts * 2)) if a != b]}")
+    counts = json.loads(rows[-1]["counts"])
+    done = sorted({float(r["done_at"]) for r in rows})
+    warm_s = done[1] - done[0]
+    phase4 = sv["row"]
+    row["batch_inference"] = {
+        "rows": len(rows), "batches": len(done), "texts_equal_to_phase_4": True,
+        "wall_s": wall, "tokens_per_s_end_to_end": len(rows) * n_new / wall,
+        "second_batch_s": warm_s, "tokens_per_s_second_batch": len(prompts) * n_new / warm_s,
+        "pool": stats, "worker_launches": counts["launches"],
+        "phase_4": {"total_s": phase4.get("total_s"),
+                    "decode_tokens_per_s": phase4.get("decode_tokens_per_s"),
+                    "tokens_per_s": (len(prompts) * n_new / phase4["total_s"]
+                                     if phase4.get("total_s") else None)}}
+    _check(stats.get("spawned") == 1 and stats.get("peak_size") == 1,
+           f"the pool's stats: {stats}")
+    print("[data] batch_inference " + json.dumps(row["batch_inference"]))
+    deadline = time.time() + 10
+    while _live(pids) and time.time() < deadline:
+        time.sleep(0.1)
+    row["pids_left_after_shutdown"] = _live(pids)
+    row["phase_s"] = time.perf_counter() - t_phase
+    _check(not row["pids_left_after_shutdown"],
+           f"processes left after shutdown(): {row['pids_left_after_shutdown']}")
+    print("[data] " + json.dumps({k: row[k] for k in ("phase_s", "pids_left_after_shutdown")}))
+    return {**counts, "row": row}
+
+
 # The main path's kernels as the kernels line names them: (the wrapper in
 # ray_tpu_torch.ops._kernels that launches it, whether it is the fp32
 # kernel, the source under ray_tpu_torch/csrc that holds it, the line of
@@ -4005,7 +4364,9 @@ def main() -> int:
              ("rllib_more", lambda: phase_rllib_more(shared), False),
              ("runtime", lambda: phase_runtime(shared), False),
              ("dag", lambda: phase_dag(shared), False),
-             ("serve_apps", lambda: phase_serve_apps(shared), False))
+             ("serve_apps", lambda: phase_serve_apps(shared), False),
+             ("rllib_remote", lambda: phase_rllib_remote(shared), False),
+             ("data", lambda: phase_data(shared), False))
     launches = dict.fromkeys(_KERNELS, 0)
     for name, run, must_launch in paths:
         for w in wrappers:
@@ -4014,7 +4375,7 @@ def main() -> int:
         total = {"launches": _launch_counts(),
                  "copies": {w.__name__: w.copies for w in wrappers}}
         if name in ("parallel", "train_backend", "rllib_more", "runtime", "dag",
-                    "serve_apps"):
+                    "serve_apps", "rllib_remote", "data"):
             total = _add_counts(total, result)
         counted, copies = total["launches"], total["copies"]
         print(f"[{name}] launches " + json.dumps(counted))

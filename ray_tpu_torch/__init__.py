@@ -15,9 +15,11 @@ torch.distributed and DTensor), the LLM engine (on one device, or
 tensor- or pipeline-parallel over a process group, or disaggregated
 into prefill and decode engines), Serve (a controller, replicas,
 handles, batching, multiplexing, an HTTP/SSE/WebSocket and gRPC proxy)
-with OpenAI-style LLM serving over it, Train (the trainer and its worker
-group on the core, process-group setup, gradient and parameter sync,
-checkpoints) and RLlib on a local runner and learner. ``interop.params_from_jax``
+with OpenAI-style LLM serving over it, Data (streaming datasets over the
+core's tasks and actor pools) with batch LLM inference over it, Train
+(the trainer and its worker group on the core, process-group setup,
+gradient and parameter sync, checkpoints) and RLlib (env runners and
+learners local or as actors of the core). ``interop.params_from_jax``
 carries a JAX parameter tree across.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
@@ -25,8 +27,9 @@ for the CPU.
 
 Importing the package loads the core only, as ``ray_tpu/__init__.py``
 does: every worker process imports it, and a worker that runs plain
-tasks never loads torch. The libraries (``llm``, ``models``, ``ops``,
-``parallel``, ``serve``, ``train``, ...) load on first attribute access.
+tasks never loads torch. The libraries (``data``, ``llm``, ``models``,
+``ops``, ``parallel``, ``serve``, ``train``, ...) load on first attribute
+access.
 """
 
 # Arm the lock-order witness FIRST when RAY_TPU_LOCK_WITNESS=1: the
@@ -67,7 +70,7 @@ from ray_tpu_torch.actor import method
 from ray_tpu_torch import exceptions
 
 # Submodules loaded on first attribute access (PEP 562).
-_LAZY = ("accelerators", "dag", "experimental", "interop", "kernel_report", "llm",
+_LAZY = ("accelerators", "dag", "data", "experimental", "interop", "kernel_report", "llm",
          "models", "ops", "parallel", "rllib", "serve", "train", "tune", "util")
 
 
@@ -106,4 +109,5 @@ __all__ = [
     "parallel",
     "serve",
     "train",
+    "data",
 ]

@@ -3,7 +3,11 @@
 The port keeps its own copies of the sources in ``ray_tpu_torch/src/``
 (the object-store arena, the spec codec, the event loop, the
 scheduler, the compiled-DAG channel ring) and builds them into
-``build/ray_tpu_torch/native/``, never into ray_tpu's ``ray_tpu/_native/``. The compiled artifacts are
+``build/ray_tpu_torch/native/`` beside the package's parent directory,
+never into ray_tpu's ``ray_tpu/_native/``. Where that directory cannot
+be written (an install in a read-only site-packages), the build goes to
+a per-user cache, ``$XDG_CACHE_HOME/ray_tpu_torch/`` (``~/.cache`` when
+unset), instead (``build_dir``). The compiled artifacts are
 intentionally NOT committed — platform-specific binaries
 in a source tree drift from their sources and are a supply-chain hazard.
 Instead they are (re)built from ``ray_tpu_torch/src/`` via make whenever a consumer
@@ -27,8 +31,34 @@ _done = False
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "src")
-_OUT = os.path.join(os.path.dirname(_PKG), "build", "ray_tpu_torch",
-                    "native")
+
+
+def _writable(path: str) -> bool:
+    """Whether ``path`` is, or can be made, a directory this process
+    writes into: its nearest existing ancestor is a directory we may
+    write (a file in the way counts as not writable)."""
+    probe = path
+    while not os.path.exists(probe):
+        parent = os.path.dirname(probe)
+        if parent == probe:
+            return False
+        probe = parent
+    return os.path.isdir(probe) and os.access(probe, os.W_OK | os.X_OK)
+
+
+def build_dir(*parts: str, pkg: str = _PKG) -> str:
+    """``build/ray_tpu_torch/<parts>`` beside the package's parent
+    directory (a checkout's root), or the same ``parts`` under the
+    per-user cache when that cannot be written (an installed package)."""
+    beside = os.path.join(os.path.dirname(pkg), "build", "ray_tpu_torch", *parts)
+    if _writable(beside):
+        return beside
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return os.path.join(cache, "ray_tpu_torch", *parts)
+
+
+_OUT = build_dir("native")
 
 _TARGETS = ("libobjstore.so", "libsched.so", "libchannel.so")
 
@@ -61,8 +91,7 @@ def _stale() -> bool:
 
 
 def ensure_native(quiet: bool = True) -> bool:
-    """Build ray_tpu_torch/src/ -> build/ray_tpu_torch/native/ if
-    missing/stale. Returns True if
+    """Build ray_tpu_torch/src/ -> ``_OUT`` if missing/stale. Returns True if
     the artifacts exist afterwards. Never raises: callers have graceful
     pure-Python fallbacks."""
     global _done

@@ -2,8 +2,10 @@
 
 The same two dataclasses with the same fields and methods, so a ray_tpu
 config reads the same here. The port's engine (ray_tpu_torch.llm.engine)
-takes every option on one device; it raises NotImplementedError for
-tensor and pipeline parallelism.
+takes every option on one device, and with ``tensor_parallel_size`` or
+``pipeline_parallel_size`` above 1 it runs one rank's part of the model
+over the default process group (``model_runner.TensorParallel``,
+``pp_runner.PPRunner``).
 """
 
 from __future__ import annotations

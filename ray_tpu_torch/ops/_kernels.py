@@ -38,8 +38,12 @@ from pathlib import Path
 
 import torch
 
+from ray_tpu_torch._private import native_build
+
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
+# build/ray_tpu_torch/ beside the checkout's package, or the per-user
+# cache where an install cannot write there.
+BUILD_DIR = Path(native_build.build_dir())
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")

@@ -1,5 +1,4 @@
-"""ray_tpu_torch.rllib: reinforcement learning (port of ray_tpu.rllib, on
-a local env runner and a local learner).
+"""ray_tpu_torch.rllib: reinforcement learning (port of ray_tpu.rllib).
 
 The env runner steps vectorized envs on the host with one batched policy
 forward on the module's device per vector step; the learner runs its
@@ -7,10 +6,13 @@ update (autograd, then the optax-style optimizer, in place) on that
 device, or over a ``data`` DeviceMesh with the minibatch sharded over its
 ranks (``learners(mesh=...)``). Algorithms are Trainables
 (``ray_tpu_torch.tune``): PPO (single- and multi-agent), DQN, SAC, BC,
-MARWIL, CQL and DreamerV3 train end to end; IMPALA and APPO bring their
-V-trace losses and learners, whose asynchronous training step needs
-remote env runners. Remote env runners and learners wait for the runtime
-core (ROADMAP.md §1 item 7, part 2)."""
+MARWIL, CQL, DreamerV3, IMPALA and APPO train end to end. Env runners
+may be remote actors of the port's core (``num_env_runners > 0``: CPU
+actors, modules on the CPU), which IMPALA and APPO sample from
+asynchronously; learners may be remote actors too (``num_learners >
+0``: each updates on its shard of the batch, holding a GPU lease when
+its device is CUDA, and the group averages their weights on the
+host)."""
 
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.algorithms.appo import APPO, APPOConfig

@@ -7,7 +7,8 @@ Counterpart of the reference's Algorithm (rllib/algorithms/algorithm.py:199
 .env_runners() calls). Algorithm subclasses ray_tpu_torch.tune.Trainable.
 
 Beside ray_tpu's options, ``learners()`` takes the ``device`` every
-module lives on (default "cuda"; pass "cpu" for the CPU); its ``mesh``
+module lives on (default "cuda"; pass "cpu" for the CPU; remote env
+runners build theirs on the CPU, see ``env/env_runner.py``); its ``mesh``
 is a one-dimensional torch DeviceMesh with a ``data`` dimension, over
 which the learner shards each minibatch (``core/learner.py``).
 Multi-agent configs (``.multi_agent()``) train one module per policy id
@@ -24,7 +25,7 @@ from typing import Any, Optional, Type
 import numpy as np
 
 from ray_tpu_torch.rllib.core.rl_module import RLModuleSpec
-from ray_tpu_torch.rllib.env.env_runner import REMOTE_RUNNERS, EnvRunnerGroup
+from ray_tpu_torch.rllib.env.env_runner import EnvRunnerGroup
 from ray_tpu_torch.rllib.env.multi_agent import (
     DEFAULT_MODULE_ID,
     MultiAgentEnvRunnerGroup,
@@ -46,6 +47,7 @@ class AlgorithmConfig:
         self.num_env_runners = 0
         self.num_envs_per_env_runner = 8
         self.rollout_fragment_length = 64
+        self.num_cpus_per_env_runner = 1.0
         # training
         self.lr = 3e-4
         self.gamma = 0.99
@@ -113,8 +115,7 @@ class AlgorithmConfig:
         if rollout_fragment_length is not None:
             self.rollout_fragment_length = rollout_fragment_length
         if num_cpus_per_env_runner is not None:
-            # Reserves CPUs for remote runner actors, which the port lacks.
-            raise NotImplementedError(f"num_cpus_per_env_runner: {REMOTE_RUNNERS}")
+            self.num_cpus_per_env_runner = num_cpus_per_env_runner
         return self
 
     def training(self, **kwargs) -> "AlgorithmConfig":

@@ -58,7 +58,8 @@ class BC(Algorithm):
         def factory():
             return TorchLearner(spec.build(seed=seed), loss_fn, tx, mesh=cfg.mesh)
 
-        self.learner_group = LearnerGroup(factory, num_learners=cfg.num_learners)
+        self.learner_group = LearnerGroup(factory, num_learners=cfg.num_learners,
+                                          device=cfg.device)
 
     def training_step(self) -> dict:
         cfg = self.algo_config

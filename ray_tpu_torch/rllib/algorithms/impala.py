@@ -1,26 +1,26 @@
-"""IMPALA: V-trace off-policy correction (port of
-ray_tpu/rllib/algorithms/impala.py: ``vtrace``, the loss and the learner).
+"""IMPALA: asynchronous sampling + V-trace off-policy correction (port of
+ray_tpu/rllib/algorithms/impala.py).
 
-Counterpart of the reference's IMPALA (rllib/algorithms/impala/impala.py:599)
-with vtrace_torch.py's recursion: ray_tpu's reverse ``lax.scan`` is a
-reverse loop over T here. The learner updates on [T*B] t-major batches
-from the env runner, whose BEHAVIOR_LOGITS are the sampling policy's.
-
-IMPALA's training step is asynchronous sampling over remote env-runner
-actors: with ``num_env_runners == 0`` it raises ray_tpu's own ValueError,
-and remote runners wait for the runtime core (ROADMAP.md §1 item 7,
-part 2; the env-runner group raises NotImplementedError for them).
+Counterpart of the reference's IMPALA (rllib/algorithms/impala/impala.py:599
+— async sample queues, weight broadcast) with vtrace_torch.py's
+recursion: ray_tpu's reverse ``lax.scan`` is a reverse loop over T here.
+Env runners sample with slightly stale weights; the learner corrects
+with clipped importance ratios. The asynchronous loop waits on the
+runners' sample refs one at a time (``ray_tpu_torch.wait``): a runner is
+re-armed with the newest weights the moment its batch lands, and the
+learner updates on each [T*B] t-major batch as it arrives. With
+``num_env_runners == 0`` the step raises ray_tpu's ValueError.
 """
 
 from __future__ import annotations
 
 import torch
 
+import ray_tpu_torch
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.core.learner import (LearnerGroup, TorchLearner, batch_mean,
                                                make_optimizer)
 from ray_tpu_torch.rllib.core.rl_module import categorical_entropy, categorical_logp
-from ray_tpu_torch.rllib.env.env_runner import REMOTE_RUNNERS
 from ray_tpu_torch.rllib.sample_batch import (
     ACTIONS,
     BEHAVIOR_LOGITS,
@@ -29,6 +29,7 @@ from ray_tpu_torch.rllib.sample_batch import (
     REWARDS,
     TERMINATEDS,
     TRUNCATEDS,
+    SampleBatch,
 )
 
 
@@ -78,13 +79,7 @@ class IMPALAConfig(AlgorithmConfig):
         self.clip_c_threshold = 1.0
         self.num_env_runners = 2  # async needs remote runners
         self.train_batch_size = 512
-
-    def training(self, **kwargs) -> "IMPALAConfig":
-        if "max_requests_in_flight" in kwargs:
-            # Bounds the sample requests out to remote runners, which the
-            # port lacks.
-            raise NotImplementedError(f"max_requests_in_flight: {REMOTE_RUNNERS}")
-        return super().training(**kwargs)
+        self.max_requests_in_flight = 2
 
 
 def vtrace_terms(params, apply_fn, batch, T: int, cfg):
@@ -135,11 +130,55 @@ class IMPALA(Algorithm):
             return TorchLearner(spec.build(seed=seed), loss_fn, tx, mesh=cfg.mesh,
                                 time_major_T=cfg.rollout_fragment_length)
 
-        # IMPALA's learner is driver-local; async scale-out is on the
-        # env-runner side.
+        # IMPALA's learner is driver-local (the card belongs to the
+        # driver); async scale-out is on the env-runner side.
         self.learner_group = LearnerGroup(factory, num_learners=0)
+        self._inflight: dict = {}  # ObjectRef -> runner handle
+
+    def _arm(self, runner, weights_ref) -> None:
+        ref = runner.sample.remote(weights_ref)
+        self._inflight[ref] = runner
 
     def training_step(self) -> dict:
-        # The asynchronous step samples from remote runners only: the local
-        # group has none, and remote ones wait for item 7 part 2.
-        raise ValueError("IMPALA requires num_env_runners >= 1 (async path)")
+        cfg = self.algo_config
+        if not self.env_runner_group.remote_runners:
+            raise ValueError("IMPALA requires num_env_runners >= 1 (async path)")
+        weights_ref = ray_tpu_torch.put(self.learner_group.get_weights())
+        # Prime the pipeline.
+        for runner in self.env_runner_group.remote_runners:
+            while (sum(1 for r in self._inflight.values() if r is runner)
+                   < cfg.max_requests_in_flight):
+                self._arm(runner, weights_ref)
+        collected: list[SampleBatch] = []
+        total = 0
+        metrics: dict = {}
+        num_updates = 0
+        while total < cfg.train_batch_size:
+            ready, _ = ray_tpu_torch.wait(list(self._inflight), num_returns=1)
+            for ref in ready:
+                runner = self._inflight.pop(ref)
+                batch = ray_tpu_torch.get(ref)
+                collected.append(batch)
+                total += len(batch)
+                # Re-arm at once with the newest weights (broadcast).
+                self._arm(runner, weights_ref)
+            # Learn on whatever has arrived (the off-policy correction
+            # absorbs the staleness).
+            while collected:
+                metrics = self.learner_group.local.update(collected.pop(0))
+                num_updates += 1
+                weights_ref = ray_tpu_torch.put(self.learner_group.get_weights())
+        metrics["num_env_steps_sampled"] = total
+        metrics["num_learner_updates"] = num_updates
+        return metrics
+
+    def cleanup(self) -> None:
+        # Drain the in-flight sample requests (bounded) before the runners
+        # are killed.
+        if self._inflight:
+            ray_tpu_torch.wait(list(self._inflight), num_returns=len(self._inflight),
+                               timeout=10.0)
+        self._inflight.clear()
+        super().cleanup()
+
+    stop = cleanup

@@ -132,7 +132,8 @@ class MARWIL(Algorithm):
         def factory():
             return TorchLearner(spec.build(seed=seed), loss_fn, tx, mesh=cfg.mesh)
 
-        self.learner_group = LearnerGroup(factory, num_learners=cfg.num_learners)
+        self.learner_group = LearnerGroup(factory, num_learners=cfg.num_learners,
+                                          device=cfg.device)
         self._ma_adv_norm = 1.0  # RMS of advantages, host-side moving stat
 
     def get_extra_state(self) -> dict:

@@ -22,7 +22,6 @@ import torch
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.connectors import build_pipeline
 from ray_tpu_torch.rllib.core.learner import (
-    REMOTE_LEARNERS,
     LearnerGroup,
     TorchLearner,
     batch_mean,
@@ -112,22 +111,29 @@ class PPO(Algorithm):
             return lambda: TorchLearner(spec.build(seed=seed), loss_fn, tx, mesh=mesh)
 
         if cfg.is_multi_agent:
-            if cfg.num_learners > 0:
-                raise NotImplementedError(REMOTE_LEARNERS)
+            # One local learner per module, whatever num_learners is (as
+            # the reference builds its MultiAgentLearnerGroup).
             self.learner_group = MultiAgentLearnerGroup(
                 {mid: factory(s) for mid, s in cfg.rl_module_specs().items()},
                 policies_to_train=cfg.policies_to_train)
             return
         self.learner_group = LearnerGroup(factory(cfg.rl_module_spec()),
-                                          num_learners=cfg.num_learners)
+                                          num_learners=cfg.num_learners, device=cfg.device)
+        # With remote learners the bootstrap values come from a local
+        # module that takes the group's weights each iteration.
+        self._value_module = (cfg.rl_module_spec().build(seed=0)
+                              if self.learner_group.local is None else None)
 
     @torch.no_grad()
     def _values(self, obs: np.ndarray, module_id: str | None = None) -> np.ndarray:
         """V(obs) under the learner's current parameters (of ``module_id``'s
         learner in a multi-agent config)."""
-        learner = (self.learner_group.local if module_id is None
-                   else self.learner_group.learners[module_id])
-        module = learner.module
+        if module_id is not None:
+            module = self.learner_group.learners[module_id].module
+        elif self.learner_group.local is not None:
+            module = self.learner_group.local.module
+        else:
+            module = self._value_module
         return module.apply(module.params, to_tensor(obs, module.device))[VF_PREDS].cpu().numpy()
 
     def _postprocess(self, batch: SampleBatch) -> SampleBatch:
@@ -199,6 +205,8 @@ class PPO(Algorithm):
         if cfg.is_multi_agent:
             return self._multi_agent_training_step()
         weights = self.learner_group.get_weights()
+        if self._value_module is not None:
+            self._value_module.set_weights(weights)
         # 1. sample (synchronous_parallel_sample, execution/rollout_ops.py:20)
         # GAE runs on each runner's t-major batch before flat concat.
         batches: list[SampleBatch] = []
@@ -210,12 +218,17 @@ class PPO(Algorithm):
                 batches.append(self._postprocess(b))
                 total += len(b)
         batch = SampleBatch.concat_samples(batches)
-        # 2. learn, one epoch at a time (the same minibatch shuffles as
-        # update_epochs over all of them), until the KL passes kl_target
-        metrics: dict = {}
-        for _ in range(cfg.num_epochs):
+        # 2. learn: every epoch in one call (remote learners average their
+        # weights after it, as the reference's do); with kl_target, one
+        # epoch at a time (the same minibatch shuffles) until the KL
+        # passes it, remote learners averaging after each epoch.
+        if cfg.kl_target is None:
             metrics = self.learner_group.update_epochs(
-                batch, num_epochs=1, minibatch_size=cfg.minibatch_size)
-            if cfg.kl_target is not None and metrics["mean_kl"] > cfg.kl_target:
-                break
+                batch, num_epochs=cfg.num_epochs, minibatch_size=cfg.minibatch_size)
+        else:
+            for _ in range(cfg.num_epochs):
+                metrics = self.learner_group.update_epochs(
+                    batch, num_epochs=1, minibatch_size=cfg.minibatch_size)
+                if metrics["mean_kl"] > cfg.kl_target:
+                    break
         return {"num_env_steps_sampled": len(batch), **metrics}

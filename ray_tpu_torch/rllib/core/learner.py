@@ -6,9 +6,16 @@ transforms (the port's optax-style ``ops/optim.py``: adam with optional
 global-norm clipping, in optax's order) and the parameters updated IN
 PLACE (ray_tpu donates the old buffers and returns new ones).
 
-The learner lives in the driver process, on the module's device.
-Learner actors (``num_learners > 0``) wait for ROADMAP.md §1 item 7,
-part 2.
+With ``num_learners == 0`` the learner lives in the driver process, on
+the module's device. With N > 0 it lives in N actors of the port's core
+(``LearnerGroup``): each updates on its shard of the batch and the
+group averages the weights on the host, as the reference does. A
+learner whose device is CUDA needs a GPU lease (a worker without one
+sees no card): each actor asks for ``num_gpus=min(1, 1/N)``, so N
+learners share one card through fractional leases, or take a card each
+once N cards... (see ``learner_resources``). The reference has no
+per-learner chip option, and this derives the lease from the device
+instead of adding one.
 
 With ``mesh`` (a one-dimensional DeviceMesh with a ``data`` dimension)
 the update is ray_tpu's SPMD program over that mesh: the parameters
@@ -41,10 +48,6 @@ from ray_tpu_torch.ops import optim
 from ray_tpu_torch.ops.tree import flatten, tree_map, unflatten
 from ray_tpu_torch.rllib.core.rl_module import to_numpy, to_tensor
 from ray_tpu_torch.rllib.sample_batch import SampleBatch
-
-REMOTE_LEARNERS = ("num_learners > 0 (learner actors) waits for the runtime core: "
-                   "ROADMAP.md §1 item 7, part 2")
-
 
 # The process group of the ``data`` dimension while a learner with a mesh
 # computes its loss; None otherwise (batch_mean is then a plain mean).
@@ -236,30 +239,124 @@ class TorchLearner:
                                   state["opt_state"])
 
 
-class LearnerGroup:
-    """The local learner (reference: rllib/core/learner/learner_group.py:72
-    with num_learners == 0: the learner lives in the driver process)."""
+def learner_lease(device, num_learners: int) -> dict:
+    """The actor options of one of ``num_learners`` learner actors: one
+    CPU, as the reference's, and for a CUDA device a GPU lease of
+    1/num_learners of a card (a whole card for one learner)."""
+    opts = {"num_cpus": 1}
+    if torch.device(device).type == "cuda":
+        opts["num_gpus"] = min(1.0, 1.0 / num_learners)
+    return opts
 
-    def __init__(self, learner_factory: Callable[[], TorchLearner], num_learners: int = 0):
-        if num_learners > 0:
-            raise NotImplementedError(REMOTE_LEARNERS)
-        self.num_learners = 0
-        self.local = learner_factory()
+
+class LearnerGroup:
+    """Local learner or remote learner actors (reference:
+    rllib/core/learner/learner_group.py:72 — update :194).
+
+    With num_learners == 0 the learner lives in the driver process. With
+    N > 0, N actors each update on a batch shard and the group averages
+    the resulting weights on the host. ``device`` is the learners'
+    device (their modules'), which decides the actors' lease."""
+
+    def __init__(self, learner_factory: Callable[[], TorchLearner], num_learners: int = 0,
+                 *, device="cuda"):
+        import ray_tpu_torch
+
+        self.num_learners = num_learners
+        if num_learners == 0:
+            self.local = learner_factory()
+            self.remotes = []
+        else:
+            self.local = None
+            actor_cls = ray_tpu_torch.remote(**learner_lease(device, num_learners))(
+                _LearnerActor)
+            self.remotes = [actor_cls.remote(learner_factory) for _ in range(num_learners)]
 
     def update_epochs(self, batch: SampleBatch, **kw) -> dict:
-        return self.local.update_epochs(batch, **kw)
+        import ray_tpu_torch
+
+        if self.local is not None:
+            return self.local.update_epochs(batch, **kw)
+        n = self.num_learners
+        if len(batch) < n:
+            # Too few rows to shard: replicate (identical updates beat
+            # empty shards whose mean() would be NaN).
+            refs = [r.update_epochs.remote(batch, **kw) for r in self.remotes]
+        else:
+            # np.array_split-style bounds: remainder rows spread over the
+            # first shards, nothing dropped.
+            bounds = np.linspace(0, len(batch), n + 1, dtype=int)
+            refs = [r.update_epochs.remote(batch.slice(int(bounds[i]), int(bounds[i + 1])), **kw)
+                    for i, r in enumerate(self.remotes)]
+        metrics = ray_tpu_torch.get(refs)
+        self._average_weights()
+        return metrics[0]
+
+    def _average_weights(self) -> None:
+        import ray_tpu_torch
+
+        all_w = ray_tpu_torch.get([r.get_weights.remote() for r in self.remotes])
+        avg = tree_map(lambda *xs: np.mean(np.stack(xs), axis=0), *all_w)
+        ref = ray_tpu_torch.put(avg)
+        ray_tpu_torch.get([r.set_weights.remote(ref) for r in self.remotes])
 
     def get_weights(self):
-        return self.local.get_weights()
+        import ray_tpu_torch
+
+        if self.local is not None:
+            return self.local.get_weights()
+        return ray_tpu_torch.get(self.remotes[0].get_weights.remote())
 
     def set_weights(self, weights) -> None:
-        self.local.set_weights(weights)
+        import ray_tpu_torch
+
+        if self.local is not None:
+            self.local.set_weights(weights)
+        else:
+            ray_tpu_torch.get([r.set_weights.remote(weights) for r in self.remotes])
 
     def get_state(self) -> dict:
-        return self.local.get_state()
+        import ray_tpu_torch
+
+        if self.local is not None:
+            return self.local.get_state()
+        return ray_tpu_torch.get(self.remotes[0].get_state.remote())
 
     def set_state(self, state: dict) -> None:
-        self.local.set_state(state)
+        import ray_tpu_torch
+
+        if self.local is not None:
+            self.local.set_state(state)
+        else:
+            ray_tpu_torch.get([r.set_state.remote(state) for r in self.remotes])
 
     def stop(self) -> None:
-        pass
+        import ray_tpu_torch
+
+        for r in self.remotes:
+            try:
+                ray_tpu_torch.kill(r)
+            except Exception:
+                pass
+
+
+class _LearnerActor:
+    """Actor wrapper so a TorchLearner can live in a worker process."""
+
+    def __init__(self, factory: Callable[[], TorchLearner]):
+        self.learner = factory()
+
+    def update_epochs(self, batch, **kw):
+        return self.learner.update_epochs(batch, **kw)
+
+    def get_weights(self):
+        return self.learner.get_weights()
+
+    def set_weights(self, w):
+        self.learner.set_weights(w)
+
+    def get_state(self):
+        return self.learner.get_state()
+
+    def set_state(self, s):
+        self.learner.set_state(s)

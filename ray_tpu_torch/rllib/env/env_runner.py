@@ -12,8 +12,13 @@ bookkeeping uses SAME_STEP autoreset semantics implemented locally so
 value bootstrapping is exact for truncations and version-stable across
 gymnasium releases.
 
-Remote runner actors (``num_env_runners > 0``) wait for the runtime
-core: ROADMAP.md §1 item 7, part 2."""
+With ``num_env_runners > 0`` the group's runners are actors of the
+port's core, each on ``num_cpus_per_env_runner`` CPUs and no GPU lease.
+A worker without a lease sees no card (``CUDA_VISIBLE_DEVICES=""``), so
+a remote runner builds its module on the CPU whatever ``config.device``
+is (``host_config``); weights reach it as numpy, one ``put`` per
+broadcast. The reference's runners run on the host as well, its
+chipless workers running JAX on the CPU."""
 
 from __future__ import annotations
 
@@ -318,24 +323,46 @@ def merge_episode_metrics(per: list[dict]) -> dict:
     return merged
 
 
-REMOTE_RUNNERS = ("num_env_runners > 0 (remote env-runner actors) waits for the "
-                  "runtime core: ROADMAP.md §1 item 7, part 2")
+def host_config(config):
+    """A copy of ``config`` whose modules live on the CPU: what a remote
+    runner builds from (multi-agent specs included)."""
+    import dataclasses
+
+    from ray_tpu_torch.rllib.core.rl_module import RLModuleSpec
+
+    c = config.copy()
+    c.device, c.mesh = "cpu", None
+    if c.policies is not None:
+        c.policies = {mid: dataclasses.replace(s, device="cpu")
+                      if isinstance(s, RLModuleSpec) else s
+                      for mid, s in c.policies.items()}
+    return c
 
 
 class EnvRunnerGroup:
-    """The local env runner (reference: rllib/env/env_runner_group.py:71
-    with num_env_runners == 0). ``remote_runners`` stays empty until the
-    runtime core comes."""
+    """Remote env-runner actors + local fallback (reference:
+    rllib/env/env_runner_group.py:71). Subclasses swap ``runner_cls``
+    (multi-agent group) without re-implementing the fan-out."""
 
     runner_cls: type = None  # set below (class defined later in this file)
 
     def __init__(self, config: "AlgorithmConfig"):  # noqa: F821
-        if config.num_env_runners > 0:
-            raise NotImplementedError(REMOTE_RUNNERS)
+        import ray_tpu_torch
+
         self.config = config
-        self.num_remote = 0
-        self.local_runner = self.runner_cls(config, seed=config.seed)
-        self.remote_runners: list = []
+        self.num_remote = config.num_env_runners
+        if self.num_remote == 0:
+            self.local_runner = self.runner_cls(config, seed=config.seed)
+            self.remote_runners = []
+        else:
+            self.local_runner = None
+            cls = ray_tpu_torch.remote(num_cpus=config.num_cpus_per_env_runner)(
+                self.runner_cls)
+            remote_config = host_config(config)
+            self.remote_runners = [
+                cls.remote(remote_config, seed=config.seed + 1000 * (i + 1))
+                for i in range(self.num_remote)
+            ]
 
     def sample(self, weights=None) -> SampleBatch:
         return SampleBatch.concat_samples(self.sample_batches(weights))
@@ -344,24 +371,88 @@ class EnvRunnerGroup:
         """Per-runner batches. Each keeps its own [T*B] t-major layout, so
         time-structured postprocessing (GAE/vtrace) must happen per batch
         BEFORE concatenation."""
-        return [self.local_runner.sample(weights)]
+        import ray_tpu_torch
+
+        if self.local_runner is not None:
+            return [self.local_runner.sample(weights)]
+        ref = ray_tpu_torch.put(weights) if weights is not None else None
+        return ray_tpu_torch.get([r.sample.remote(ref) for r in self.remote_runners])
+
+    def sample_async(self, weights=None) -> list:
+        """Kick off sampling on every remote runner; returns (runner, ref)
+        pairs (reference: foreach_env_runner_async, the IMPALA path)."""
+        import ray_tpu_torch
+
+        ref = ray_tpu_torch.put(weights) if weights is not None else None
+        return [(r, r.sample.remote(ref)) for r in self.remote_runners]
 
     def get_metrics(self) -> dict:
-        return merge_episode_metrics([self.local_runner.get_metrics()])
+        import ray_tpu_torch
+
+        if self.local_runner is not None:
+            per = [self.local_runner.get_metrics()]
+        else:
+            per = ray_tpu_torch.get([r.get_metrics.remote() for r in self.remote_runners])
+        return merge_episode_metrics(per)
 
     def get_connector_state(self):
-        return self.local_runner.get_connector_state()
+        """Merged pipeline state across ALL runners (reference:
+        MeanStdFilter sync semantics): gather every runner's state,
+        combine stateful connectors (Chan's parallel combine for running
+        normalizers), and broadcast the merged stats back so each runner
+        keeps normalizing with the shared statistics."""
+        import ray_tpu_torch
+
+        from ray_tpu_torch.rllib.connectors import merge_pipeline_states
+
+        if self.local_runner is not None:
+            return self.local_runner.get_connector_state()
+        if not self.remote_runners:
+            return None
+        states = ray_tpu_torch.get([r.get_connector_state.remote()
+                                    for r in self.remote_runners])
+        merged, mergeable = merge_pipeline_states(states)
+        if merged is not None:
+            # Gathering HARVESTED each runner's delta, so the merged
+            # result must go back even with one runner or the samples
+            # would vanish from every future merge. Broadcast ONLY
+            # genuinely merged positions; unmergeable (unknown-kind)
+            # connector state stays per-runner — a None entry is skipped
+            # by ConnectorPipelineV2.set_state.
+            broadcast = [m if ok else None for m, ok in zip(merged, mergeable)]
+            if any(b is not None for b in broadcast):
+                ray_tpu_torch.get([r.set_connector_state.remote(broadcast)
+                                   for r in self.remote_runners])
+        return merged
 
     def sync_connector_states(self) -> None:
-        """Cross-runner stats sync: nothing to do with one local runner."""
+        """Periodic cross-runner stats sync (called by Algorithm.step);
+        no-op with a local runner or no stateful connectors."""
+        if self.local_runner is None and len(self.remote_runners) > 1:
+            self.get_connector_state()
 
     def set_connector_state(self, state) -> None:
-        """Seed the runner's pipeline (restore path)."""
-        if state is not None:
+        """Seed every runner's pipeline (restore path)."""
+        import ray_tpu_torch
+
+        if state is None:
+            return
+        if self.local_runner is not None:
             self.local_runner.set_connector_state(state)
+        else:
+            ray_tpu_torch.get([r.set_connector_state.remote(state)
+                               for r in self.remote_runners])
 
     def stop(self) -> None:
-        self.local_runner.stop()
+        import ray_tpu_torch
+
+        if self.local_runner is not None:
+            self.local_runner.stop()
+        for r in self.remote_runners:
+            try:
+                ray_tpu_torch.kill(r)
+            except Exception:
+                pass
 
 
 EnvRunnerGroup.runner_cls = SingleAgentEnvRunner

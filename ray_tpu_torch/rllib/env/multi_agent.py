@@ -23,8 +23,8 @@ operates on a MultiRLModule keyed by ModuleID). Design notes:
   rewards credited to it, until it observes again or the episode ends
   (reference: AgentCollector semantics in env_runner_v2).
 
-Remote runner actors (``num_env_runners > 0``) wait for the runtime
-core, as the single-agent group's do: ROADMAP.md §1 item 7, part 2.
+Remote runner actors (``num_env_runners > 0``) build their modules on
+the CPU, as the single-agent group's do (``env_runner.host_config``).
 """
 
 from __future__ import annotations
@@ -304,21 +304,34 @@ class MultiAgentEnvRunner:
 
 
 class MultiAgentEnvRunnerGroup(EnvRunnerGroup):
-    """The local multi-agent runner (reference: EnvRunnerGroup with
-    MultiAgentEnvRunner workers). Multi-agent sampling returns per-module
-    fragment lists, so the single-agent sample()/sample_batches() surface
-    is replaced by ``sample_fragments``."""
+    """Remote multi-agent runner fan-out (reference: EnvRunnerGroup with
+    MultiAgentEnvRunner workers). Inherits construction, metrics merge and
+    teardown; multi-agent sampling returns per-module fragment lists, so
+    the single-agent sample()/sample_batches() surface is replaced by
+    ``sample_fragments``."""
 
     runner_cls = MultiAgentEnvRunner
 
     def sample_fragments(self, weights=None) -> dict[str, list[SampleBatch]]:
-        return self.local_runner.sample(weights)
+        import ray_tpu_torch
+
+        if self.local_runner is not None:
+            results = [self.local_runner.sample(weights)]
+        else:
+            ref = ray_tpu_torch.put(weights) if weights is not None else None
+            results = ray_tpu_torch.get([r.sample.remote(ref) for r in self.remote_runners])
+        merged: dict[str, list[SampleBatch]] = {}
+        for res in results:
+            for mid, frags in res.items():
+                merged.setdefault(mid, []).extend(frags)
+        return merged
 
     def sample(self, weights=None):
         raise NotImplementedError(
             "multi-agent groups produce per-module fragments; use sample_fragments()")
 
     sample_batches = sample
+    sample_async = sample
 
 
 class MultiAgentLearnerGroup:

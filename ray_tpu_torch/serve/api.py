@@ -124,14 +124,25 @@ def get_app_handle(name: str) -> DeploymentHandle:
     return DeploymentHandle(ingress)
 
 
-def _wait_ready(controller, name: str, timeout_s: float = 30.0) -> None:
+# How long serve.run waits for a deployment's first replica to finish
+# its constructor: a replica on the card took 26.71-29 s to start, and a
+# first deploy also spent ~20 s importing the deployment's module
+# (NVIDIA H100 80GB HBM3).
+READY_TIMEOUT_S = 180.0
+
+
+def _wait_ready(controller, name: str, timeout_s: float = READY_TIMEOUT_S) -> None:
+    """Return once a replica of ``name`` has finished its constructor, so
+    the first request after serve.run is answered at once (full scale-out
+    continues in the background). A constructor that raised raises here
+    with its error."""
     deadline = time.monotonic() + timeout_s
     while time.monotonic() < deadline:
-        st = ray_tpu_torch.get(controller.status.remote()).get(name)
-        # Ready = first replica serving (full scale-out continues in the
-        # background; reference serve.run readiness semantics).
-        if st and st["running_replicas"] >= 1:
+        st = ray_tpu_torch.get(controller.readiness.remote(name), timeout=30)
+        if st and st["running"] >= 1:
             return
+        if st and st["error"]:
+            raise RayTpuError(f"deployment {name}: {st['error']}")
         time.sleep(0.1)
     raise TimeoutError(f"deployment {name} not ready after {timeout_s}s")
 
@@ -255,8 +266,12 @@ def _deploy_specs(controller, specs: list[dict], *, wait: bool = True) -> None:
     if _proxy is not None:
         routes = ray_tpu_torch.get(controller.get_routes.remote())
         ray_tpu_torch.get(_proxy.update_routes.remote(routes))
-    if wait and specs:
-        _wait_ready(controller, specs[-1]["name"])
+    if wait:
+        # Every deployment of the app, children first: a request reaches
+        # the children through the ingress, and a child's replicas take
+        # requests only once built.
+        for spec in specs:
+            _wait_ready(controller, spec["name"])
 
 
 def build(app: "Application | Deployment", *, route_prefix: str | None = None,

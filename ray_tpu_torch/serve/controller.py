@@ -28,6 +28,18 @@ Serving-plane additions:
 The reference also hints its cluster autoscaler when the replica target
 grows (``autoscaler.sdk.request_resources``); the port has no cluster
 autoscaler yet (ROADMAP item 6g), so replicas wait for capacity.
+A replica counts as running once its constructor has returned: the
+controller keeps a new replica under ``starting`` until its ``ready()``
+call answers, and only then routes to it and probes its health. A
+constructor that raises is reported (``readiness``) and the replica is
+killed and not counted. The reference counts a replica once its actor
+has started, so its ``serve.run`` can return while a slow constructor
+(a model loading onto the card) still runs, and the first requests wait
+on it or time out. serve.run waits for every deployment of the app.
+While a deployment has no built replica (all still starting, or the
+last one died and its successor is building), a request to it fails at
+once ("has no running replicas"), where the reference's would wait on a
+replica still constructing.
 A replica's actor options are the deployment's ``ray_actor_options``:
 a replica that serves on the card asks for ``num_gpus`` (whole, or a
 fraction that shares a device), since a worker without a GPU lease
@@ -64,7 +76,11 @@ class _DeploymentState:
     def __init__(self, spec: dict):
         self.spec = spec
         self.config: DeploymentConfig = spec["config"]
-        self.replicas: dict[str, Any] = {}  # rid -> ActorHandle
+        self.replicas: dict[str, Any] = {}  # rid -> ActorHandle, constructed
+        # rid -> (actor, ref of its ready() call): constructor still running.
+        self.starting: dict[str, tuple] = {}
+        # The last constructor failure, until a replica comes up.
+        self.error: "str | None" = None
         self.draining: dict[str, tuple] = {}  # rid -> (actor, ref, deadline)
         self.version = 0
         self.last_metrics: dict[str, dict] = {}
@@ -188,6 +204,16 @@ class ServeController:
                 }
             return routes
 
+    def readiness(self, deployment_name: str) -> "dict | None":
+        """Replicas constructed, replicas still constructing, and the
+        last constructor error of a deployment (None if it is unknown)."""
+        with self._lock:
+            st = self._deployments.get(deployment_name)
+            if st is None:
+                return None
+            return {"running": len(st.replicas), "starting": len(st.starting),
+                    "error": st.error}
+
     def status(self) -> dict:
         with self._lock:
             out = {}
@@ -230,6 +256,8 @@ class ServeController:
         if st is not None:
             for actor in st.replicas.values():
                 self._kill(actor)
+            for actor, _ref in st.starting.values():
+                self._kill(actor)
             for actor, _ref, _dl in st.draining.values():
                 self._kill(actor)
 
@@ -258,11 +286,39 @@ class ServeController:
         with self._lock:
             states = list(self._deployments.values())
         for st in states:
+            self._promote_started(st)
             self._probe_health(st)
             self._autoscale(st)
             self._scale_to_target(st)
             self._reap_draining(st)
         self._export_metrics(states)
+
+    def _promote_started(self, st: _DeploymentState) -> None:
+        """Move each replica whose ``ready()`` answered from ``starting``
+        to ``replicas``; a replica whose constructor raised is killed and
+        its error kept for ``readiness``."""
+        with self._lock:
+            items = list(st.starting.items())
+        if not items:
+            return
+        ready, _ = ray_tpu_torch.wait([ref for _, (_, ref) in items],
+                                      num_returns=len(items), timeout=0)
+        ready_set = {r.hex() for r in ready}
+        for rid, (actor, ref) in items:
+            if ref.hex() not in ready_set:
+                continue
+            try:
+                ray_tpu_torch.get(ref, timeout=5.0)
+            except Exception as e:  # noqa: BLE001 — the constructor's error
+                with self._lock:
+                    st.starting.pop(rid, None)
+                    st.error = f"replica {rid} failed to start: {e}"
+                self._kill(actor)
+                continue
+            with self._lock:
+                if st.starting.pop(rid, None) is not None:
+                    st.replicas[rid] = actor
+                    st.error = None
 
     def _probe_health(self, st: _DeploymentState) -> None:
         dead = []
@@ -283,9 +339,10 @@ class ServeController:
             ready_set = {r.hex() for r in ready}
             for rid, ref in refs:
                 if ref.hex() not in ready_set:
-                    # Slow ≠ dead (busy replica, or still constructing on
-                    # a loaded host). Dead workers fail fast — the head
-                    # errors their pending calls on disconnect.
+                    # Slow ≠ dead (a busy replica; constructing ones are
+                    # under ``starting``, not probed here). Dead workers
+                    # fail fast — the head errors their pending calls on
+                    # disconnect.
                     continue
                 try:
                     st.last_metrics[rid] = ray_tpu_torch.get(ref)
@@ -354,14 +411,20 @@ class ServeController:
 
     def _scale_to_target(self, st: _DeploymentState) -> None:
         with self._lock:
-            current = len(st.replicas)
+            current = len(st.replicas) + len(st.starting)
             if current < st.target:
                 for _ in range(st.target - current):
                     rid, actor = self._start_replica(st)
-                    st.replicas[rid] = actor
+                    st.starting[rid] = (actor, actor.ready.remote())
                 st.version += 1
             elif current > st.target:
-                doomed = list(st.replicas)[st.target - current:]
+                # Replicas still constructing serve nothing yet: they go
+                # first, without a drain.
+                while st.starting and current > st.target:
+                    _rid, (actor, _ref) = st.starting.popitem()
+                    self._kill(actor)
+                    current -= 1
+                doomed = list(st.replicas)[st.target - current:] if current > st.target else []
                 for rid in doomed:
                     actor = st.replicas.pop(rid)
                     st.last_metrics.pop(rid, None)

@@ -86,8 +86,15 @@ class Replica:
         self._user_pool = ThreadPoolExecutor(
             max_workers=max(2, int(max_ongoing_requests)),
             thread_name_prefix="replica-user")
+        # A constructor that raises is kept for ready() to report (an
+        # actor whose own constructor raises dies without its error).
+        self._init_error: "str | None" = None
         if isinstance(cls_or_fn, type):
-            self.instance = cls_or_fn(*init_args, **init_kwargs)
+            try:
+                self.instance = cls_or_fn(*init_args, **init_kwargs)
+            except Exception as e:  # noqa: BLE001 — reported by ready()
+                self.instance = None
+                self._init_error = f"{type(e).__name__}: {e}"
         else:
             self.instance = cls_or_fn  # plain function deployment
         _replica_context.servable_object = self.instance
@@ -226,6 +233,15 @@ class Replica:
         finally:
             with self._lock:
                 self._ongoing -= 1
+
+    async def ready(self) -> bool:
+        """Answers once the constructor has returned (an actor runs no
+        method before it), so the controller counts a replica as running
+        only when it can serve; a constructor that raised makes this call
+        raise with its error."""
+        if self._init_error is not None:
+            raise RuntimeError(f"the constructor raised {self._init_error}")
+        return True
 
     async def get_metrics(self) -> dict:
         from ray_tpu_torch.serve import batching

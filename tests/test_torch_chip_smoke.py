@@ -4,7 +4,7 @@ line, phase 6's routing and f32 GEMM helpers, phase 7's leaf-wise
 comparison, shard slicing and the launch counts its ranks report, and
 phase 8's merged-LoRA reference, token check and JSON prefix check,
 phase 9's resumed-run check and data-parallel limit, phase 10's
-reading of a pipeline rank's failure, and phases 11-14 run on the CPU
+reading of a pipeline rank's failure, and phases 11-18 run on the CPU
 (phase 13's two-agent CartPole against two CartPoles; phase 14's
 workers' launch counts reach the kernels line)."""
 
@@ -701,3 +701,65 @@ def test_serve_apps_phase_runs_on_the_cpu(capsys):
     assert set(out["launches"]) == set(chip_smoke._KERNELS)
     assert set(out["launches"].values()) == {0}
     assert "[serve_apps] disaggregated " in capsys.readouterr().out
+
+
+def _tiny_serve_shared(n_new=8):
+    """Phase 4's record for the CPU tests: a tiny f32 model (its weights
+    from LLMConfig's seed, as a replica or a pool worker builds them) and
+    its tokens for phase 4's prompts."""
+    import dataclasses
+
+    from ray_tpu_torch import models
+    from ray_tpu_torch.llm import LLMConfig, LLMEngine, SamplingParams
+
+    cfg = dataclasses.replace(models.tiny(vocab_size=512, max_seq_len=1024), dtype="float32")
+    params = models.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    eng = LLMEngine(LLMConfig(model=cfg, max_num_seqs=8, max_seq_len=1024, tokenizer="byte"),
+                    params, device="cpu")
+    words = "the engine answers every request with thirty two tokens "
+    prompts = [(words * 5)[:n] for n in (11, 24, 30, 50, 60, 100, 200, 240)]
+    outs = eng.generate(prompts, SamplingParams(max_tokens=n_new, ignore_eos=True))
+    return {"serve": {"params": params, "prompts": prompts, "model": cfg,
+                      "row": {"total_s": 1.0}, "tokens": [o.token_ids for o in outs],
+                      "texts": [o.text for o in outs]}}
+
+
+def test_rllib_remote_phase_runs_on_the_cpu(capsys):
+    """Phase 17 end to end on the CPU (2 PPO iterations and 2 of IMPALA):
+    PPO with 2 remote runners and 2 remote learners, IMPALA and APPO at
+    their defaults pass its checks, no process is left, and it reports no
+    kernel launch."""
+    out = chip_smoke.phase_rllib_remote({}, device="cpu", small=True)
+    row = out["row"]
+    assert row["ppo"]["learners_bitwise_equal"] == [True, True]
+    assert all(s >= 512 for s in row["ppo"]["env_steps_sampled"])
+    assert row["impala"]["iterations"] == 2 and row["appo"]["iterations"] == 1
+    assert row["pids_left_after_shutdown"] == []
+    assert set(out["launches"]) == set(chip_smoke._KERNELS)
+    assert set(out["launches"].values()) == {0}
+    assert "[rllib_remote] appo " in capsys.readouterr().out
+
+
+def test_data_phase_runs_on_the_cpu(capsys):
+    """Phase 18 end to end on the CPU (a tiny model at B=2, T=32; phase
+    4's tiny stand-in): the Dataset-fed steps equal the direct ones bit
+    for bit, the pool of one GPU-leased worker gives phase 4's texts
+    (the engine's own), its worker's counts come back (no launch on the
+    CPU), no process is left, and the optional libraries are listed."""
+    from ray_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    shared = _tiny_serve_shared()
+    out = chip_smoke.phase_data(shared, device="cpu", small=True)
+    row = out["row"]
+    assert row["train"]["bitwise_equal_to_direct"] and len(row["train"]["losses"]) == 6
+    bi = row["batch_inference"]
+    assert bi["texts_equal_to_phase_4"] and bi["rows"] == 16 and bi["batches"] == 2
+    assert bi["pool"]["spawned"] == 1
+    # the texts it held the stage to (phase 4's tokens decoded) are the engine's
+    assert shared["serve"]["texts"] == [ByteTokenizer().decode(t)
+                                        for t in shared["serve"]["tokens"]]
+    assert set(row["optional_libraries"]) == set(chip_smoke._OPTIONAL)
+    assert row["pids_left_after_shutdown"] == []
+    assert set(out["launches"]) == set(chip_smoke._KERNELS)
+    assert set(out["launches"].values()) == {0}
+    assert "[data] batch_inference " in capsys.readouterr().out

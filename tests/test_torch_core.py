@@ -627,10 +627,16 @@ def test_tensor_result_is_immutable_across_gets(cluster):
     assert torch.equal(ray_tpu_torch.get(ref, timeout=T), orig)
 
 
-def test_gpu_leases_pin_cuda_visible_devices(cluster):
+def test_gpu_leases_pin_cuda_visible_devices(cluster, tmp_path):
     @ray_tpu_torch.remote(num_gpus=1)
-    def leased():
-        time.sleep(0.5)  # both leases held at once
+    def leased(barrier):
+        # Both leases held at once: each task waits until the other has
+        # started (a sleep let a slow second worker start after the first
+        # task ended, and take its device).
+        open(os.path.join(barrier, str(os.getpid())), "w").close()
+        deadline = time.monotonic() + T / 2
+        while len(os.listdir(barrier)) < 2 and time.monotonic() < deadline:
+            time.sleep(0.02)
         return os.environ.get("CUDA_VISIBLE_DEVICES")
 
     @ray_tpu_torch.remote
@@ -649,7 +655,8 @@ def test_gpu_leases_pin_cuda_visible_devices(cluster):
         def visible(self):
             return self.at_init, os.environ.get("CUDA_VISIBLE_DEVICES")
 
-    seen = ray_tpu_torch.get([leased.remote(), leased.remote()], timeout=T)
+    seen = ray_tpu_torch.get([leased.remote(str(tmp_path)), leased.remote(str(tmp_path))],
+                             timeout=T)
     assert sorted(seen) == ["0", "1"]
     assert ray_tpu_torch.get(chipless.remote(), timeout=T) == ""
     assert ray_tpu_torch.get(alias.remote(), timeout=T) in ("0", "1")

@@ -10,8 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from ray_tpu_torch import interop, models, parallel, rllib, train
-from ray_tpu_torch.llm import LLMConfig, LLMEngine, LLMServer, kv_pages, lora, model_runner
+from ray_tpu_torch import data, interop, models, parallel, rllib, train
+from ray_tpu_torch.llm import (LLMConfig, LLMEngine, LLMPredictor, LLMServer, kv_pages, lora,
+                               model_runner)
 from ray_tpu_torch.ops import layers
 from ray_tpu_torch.ops.optim import FusedClipAdamW
 
@@ -68,7 +69,9 @@ missing = sorted(({"ray_tpu_torch.ops.moe", "ray_tpu_torch.ops.optim",
                      "serve", "serve.api", "serve.batching", "serve.controller",
                      "serve.deployment", "serve.grpc_proxy", "serve.handle",
                      "serve.multiplex", "serve.proxy", "serve.replica",
-                     "serve.scheduler", "llm.serving")})
+                     "serve.scheduler", "llm.serving", "llm.batch", "data",
+                     "data.block", "data.datasource", "data.executor",
+                     "data.actor_pool", "data.dataset", "data.preprocessors")})
                  - set(sys.modules))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "ray_tpu"
@@ -83,13 +86,14 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, missing, bad = out.stdout.split(" ", 2)
-    assert int(n_modules) >= 138
+    assert int(n_modules) >= 146
     assert missing == "[]"  # the MoE ops, the optimizers, the parallel slice,
     # the LLM plane's paged KV, LoRA, guided and pipeline modules, the
     # Train backend, RLlib (multi-agent and DreamerV3 too), Tune's
     # Trainable, the exceptions and the task/actor core (_private, the
     # API, the accelerator managers, util), the DAGs and their channels, util.collective,
-    # the trainer, Serve, util.metrics and the LLM's serving deployments were imported
+    # the trainer, Serve, util.metrics, the LLM's serving deployments, Data
+    # and the LLM's batch stage were imported
     assert bad.strip() == "[]"
 
 
@@ -105,6 +109,8 @@ ENTRY_POINTS = {
     "params_from_jax": lambda: interop.params_from_jax({"w": np.zeros(2)}),
     "LLMEngine": lambda: LLMEngine(LLMConfig(model="tiny")),
     "LLMServer": lambda: LLMServer(LLMConfig(model="tiny")),
+    "LLMPredictor": lambda: LLMPredictor(LLMConfig(model="tiny")),
+    "Dataset.iter_torch_batches": lambda: next(data.range(4).iter_torch_batches()),
     "MeshConfig.build": lambda: parallel.MeshConfig().build(),
     "TorchBackend.on_worker_setup": lambda: train.TorchBackend().on_worker_setup(
         0, 1, "g", train.TorchConfig(distributed="on")),
@@ -152,11 +158,19 @@ def test_entry_point_defaults_to_cuda(entry):
 def test_package_docstrings_name_what_is_ported():
     """The package and the LLM plane say that Serve and the serving
     deployments are here (no longer a later slice), and util names its
-    metrics."""
+    metrics; the package names Data, the LLM plane its batch stage, and
+    RLlib its remote groups (no item still waited for)."""
     import ray_tpu_torch
     from ray_tpu_torch import llm, util
 
     assert "Serve" in ray_tpu_torch.__doc__ and "serve" in ray_tpu_torch._LAZY
+    assert "Data" in ray_tpu_torch.__doc__ and "data" in ray_tpu_torch._LAZY
+    assert "item 6e" not in llm.__doc__ and "build_llm_processor" in llm.__doc__
+    assert {"LLMPredictor", "build_llm_processor"} <= set(llm.__all__)
+    assert "item 7" not in rllib.__doc__ and "num_env_runners > 0" in rllib.__doc__
+    # the engine builds tensor- and pipeline-parallel runners (since PR 10)
+    assert "NotImplementedError" not in llm.config.__doc__
+    assert "TensorParallel" in llm.config.__doc__ and "PPRunner" in llm.config.__doc__
     assert "later slices" not in llm.__doc__ and "LLMServer" in llm.__doc__
     assert {"LLMServer", "build_openai_app", "build_disaggregated_app"} <= set(llm.__all__)
     assert "util.metrics" in util.__doc__

@@ -211,29 +211,37 @@ def test_restored_checkpoint_gives_the_same_next_update(tmp_path, algo):
 
 
 def test_what_waits_raises():
-    """Remote runners and learners wait for the runtime core, for
-    single- and multi-agent configs alike."""
+    """Nothing waits any more (the name is kept from when remote runners
+    and learners raised): remote runners and learners configure for
+    single- and multi-agent configs alike, and a remote runner's config
+    (``host_config``) puts every module on the CPU while the learners
+    keep the config's device."""
+    from ray_tpu_torch.rllib.env.env_runner import host_config
+
     cfg = tppo.PPOConfig().environment("CartPole-v1").learners(device="cpu")
-    multi = (tppo.PPOConfig().environment(SignalMatch).learners(device="cpu")
+    multi = (tppo.PPOConfig().environment(SignalMatch)
              .multi_agent(policies=["a0", "a1"], policy_mapping_fn=lambda a, i=0, **k: a))
+    multi._infer_spaces()
     for c in (cfg, multi):
-        with pytest.raises(NotImplementedError, match="item 7, part 2"):
-            c.copy().env_runners(num_env_runners=2).build()
-        with pytest.raises(NotImplementedError, match="item 7, part 2"):
-            c.copy().learners(num_learners=2).build()
+        remote = c.copy().env_runners(num_env_runners=2).learners(num_learners=2)
+        assert (remote.num_env_runners, remote.num_learners) == (2, 2)
+        hosted = host_config(remote)
+        assert hosted.device == "cpu" and hosted.mesh is None
+        assert {s.device for s in hosted.rl_module_specs().values()} == {"cpu"}
+    assert {s.device for s in multi.rl_module_specs().values()} == {"cuda"}
     assert cfg.rl_module_spec().device == "cpu"
     assert tppo.PPOConfig().device == "cuda"
 
 
-@pytest.mark.parametrize("set_option", [
-    lambda c: c.env_runners(num_cpus_per_env_runner=2.0),
-    lambda c: timpala.IMPALAConfig().training(max_requests_in_flight=4),
+@pytest.mark.parametrize("set_option,read", [
+    (lambda c: c.env_runners(num_cpus_per_env_runner=2.0), "num_cpus_per_env_runner"),
+    (lambda c: timpala.IMPALAConfig().training(max_requests_in_flight=4),
+     "max_requests_in_flight"),
 ], ids=["num_cpus_per_env_runner", "max_requests_in_flight"])
-def test_remote_runner_options_raise(set_option):
-    """Options that only size remote runners are refused, as remote
-    runners are, rather than kept and read by nothing."""
-    with pytest.raises(NotImplementedError, match="item 7, part 2"):
-        set_option(tppo.PPOConfig())
+def test_remote_runner_options_raise(set_option, read):
+    """Options that only size remote runners (refused while the port had
+    none, whence the name) are kept now, as ray_tpu keeps them."""
+    assert getattr(set_option(tppo.PPOConfig()), read) in (2.0, 4)
 
 
 @pytest.mark.parametrize("kl_target,updates", [(None, 6), (1e9, 6), (-1.0, 2)])

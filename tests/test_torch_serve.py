@@ -287,6 +287,78 @@ def test_replica_death_recovers():
     assert ok, "the deployment did not recover after its replica died"
 
 
+# ------------------------------------------------------------ readiness
+
+
+@pytest.mark.parametrize("via", ["handle", "http"])
+def test_run_returns_once_a_replica_is_constructed(via):
+    """serve.run returns only after a replica's constructor has returned
+    (here a 3 s one), so the first request is answered on the first try
+    by a replica built before serve.run returned."""
+
+    @serve.deployment
+    class SlowStart:
+        def __init__(self):
+            time.sleep(3.0)
+            self.built_at = time.time()
+
+        def __call__(self, _):
+            return {"built_at": self.built_at}
+
+    t0 = time.time()
+    h = serve.run(SlowStart.bind(), name=f"slow_{via}", route_prefix=f"/slow_{via}")
+    returned = time.time()
+    assert returned - t0 >= 3.0
+    assert serve.status()["SlowStart"]["running_replicas"] == 1
+    if via == "handle":
+        body = h.remote({}).result(timeout_s=T)
+    else:
+        code, body = http(serve.get_proxy_port(), f"/slow_{via}", {})
+        assert code == 200
+    assert body["built_at"] <= returned
+
+
+def test_run_waits_for_every_deployment_of_the_app():
+    """A fast ingress over a child whose constructor takes 3 s: serve.run
+    returns once the child is built too, and the first request through
+    the ingress reaches it."""
+
+    @serve.deployment
+    class SlowChild:
+        def __init__(self):
+            time.sleep(3.0)
+
+        def __call__(self, x):
+            return x + 1
+
+    @serve.deployment
+    class FastIngress:
+        def __init__(self, child):
+            self.child = child
+
+        async def __call__(self, x):
+            return await self.child.remote(x)
+
+    t0 = time.time()
+    h = serve.run(FastIngress.bind(SlowChild.bind()), proxy=False)
+    assert time.time() - t0 >= 3.0
+    assert h.remote(41).result(timeout_s=T) == 42
+
+
+def test_run_reports_a_constructor_that_raises():
+    @serve.deployment
+    class BrokenStart:
+        def __init__(self):
+            raise ValueError("no weights at this path")
+
+        def __call__(self, _):
+            return "unreachable"
+
+    with pytest.raises(Exception, match="no weights at this path"):
+        serve.run(BrokenStart.bind(), proxy=False)
+    assert serve.status()["BrokenStart"]["running_replicas"] == 0
+
+
 # ------------------------------------------------------------ batching
 
 

@@ -261,17 +261,46 @@ Phases, in order; any failed check exits non-zero:
                phase 4's; the pool's stats. (c) which of pyarrow, pandas,
                PIL and tensorflow this machine has. No process left
                after shutdown().
+ 19. tune_jobs — the main path, part 17: Tune, Workflow, job submission,
+               the state API and the dashboard on one cluster. (a) A
+               Tuner over phase 9 (a)'s bf16 GPT-2 124M steps (B=8,
+               T=1024, FusedClipAdamW) as a function trainable on half a
+               card a trial (tune.with_resources {"gpu": 0.5}), learning
+               rates 3e-4, 1e-3, 1e-4, 3e-5, two trials at a time, ASHA
+               (max_t 3 reports of 2 steps, each with a checkpoint): no
+               trial error, two trials training at once on device "0",
+               the 3e-4 trial's losses phase 9's bit for bit, the best
+               Result's checkpoint loaded here equal to its last report's
+               parameters (by checksum), each bf16 kernel 12 launches a
+               step in the trials' workers; each trial's cold start and
+               step ms beside phase 5's, the fit's wall time. (b)
+               Tuner(TorchTrainer) over phase 9's loop on a worker of
+               half a card, learning rates 3e-4 and 1e-3, 3 steps: the
+               3e-4 trial's losses phase 9's bit for bit. (c) A workflow:
+               a CPU step makes tokens, a num_gpus=0.5 step returns GPT-2's
+               per-row losses (B=4, T=1024, flash) as a CUDA tensor, a
+               CPU step gated by an event the driver triggers fails on
+               its first run; resume returns the driver's forward bit for
+               bit, the GPU step ran once, its stored value loads in a
+               worker without a card. (d) The dashboard; a job
+               (JobSubmissionClient) joins the cluster and runs one
+               num_gpus=1 flash forward whose checksum, printed, is the
+               driver's; /api/cluster shows GPU 1, the trial actors are
+               in util.state and /api/actors, summarize_tasks counts the
+               job's task, /metrics and the Grafana JSON answer. No
+               process left after shutdown().
 
-Each path of phases 3-18 is driven with the kernels' launch and copy
+Each path of phases 3-19 is driven with the kernels' launch and copy
 counts set to 0 just before it and read just after; launches made in
 phase 2 do not count, those of the ranks of phases 7, 9 and 13, of
 phase 14's workers, of phase 15's trainer worker (its last report
-carries its counts), of phase 16's forward replica and of phase 18's
-pool worker (a stage fused after the LLM stage reports them) do;
+carries its counts), of phase 16's forward replica, of phase 18's
+pool worker (a stage fused after the LLM stage reports them) and of
+phase 19's trials, trainer workers, GPU workflow step and job task do;
 phase 17's learners and runners run MLPs and report none. No path may make the
 wrappers copy an input (the model's q, k, v are views that TMA reads in
 place, on each rank's shard too). The kernels line sums the launches of
-phases 3-18, one entry for each kernel: a wrapper
+phases 3-19, one entry for each kernel: a wrapper
 sends bf16/fp16 to a wgmma kernel and fp32 to a kernel of its own
 (every product in 3xTF32 on the tensor cores), and counts the two apart.
 Phase 2 also requires two launches of the fp32 forward and of the fp32
@@ -1746,11 +1775,12 @@ def _step_batches(cfg, n, B, T, device="cuda"):
         generator=torch.Generator(device=device).manual_seed(100 + i))} for i in range(n)]
 
 
-def _dp_opt():
-    """Phase 9's optimizer: FusedClipAdamW at bench.py's settings."""
+def _dp_opt(lr: float = 3e-4):
+    """Phase 9's optimizer: FusedClipAdamW at bench.py's settings (phase
+    19's trials change the learning rate)."""
     from ray_tpu_torch.ops.optim import FusedClipAdamW
 
-    return FusedClipAdamW(learning_rate=3e-4, weight_decay=0.1, clip_norm=1.0)
+    return FusedClipAdamW(learning_rate=lr, weight_decay=0.1, clip_norm=1.0)
 
 
 def _dp_fresh(cfg, opt, seed, device):
@@ -3360,7 +3390,9 @@ def _dag_train_loop(config):
     trainer's worker. Six steps from seed 0's state (or steps 4-6 from
     the checkpoint at ``config["resume_from"]``, restored into seed 1's
     state as phase 9 restores it), a report each step, a checkpoint with
-    step 3's report. Each report carries this worker's kernel counts."""
+    step 3's report. Each report carries this worker's kernel counts and
+    the losses so far. Phase 19 (b) runs ``config["steps"]`` steps at
+    ``config["lr"]`` (defaults: 6, phase 9's 3e-4)."""
     from ray_tpu_torch import train
     from ray_tpu_torch.ops import _kernels
     from ray_tpu_torch.train import torch_utils
@@ -3370,10 +3402,10 @@ def _dag_train_loop(config):
     for name in _COPYING:
         w = getattr(_kernels, name)
         w.launches = w.launches_fp32 = w.copies = 0
-    device = config["device"]
+    device, n_steps = config["device"], config.get("steps", 6)
     cfg, B, T = _dag_train_setup(config["small"])
-    opt = _dp_opt()
-    batches = _step_batches(cfg, 6, B, T, device)
+    opt = _dp_opt(config.get("lr", 3e-4))
+    batches = _step_batches(cfg, n_steps, B, T, device)
     if config.get("resume_from"):
         p2, s2 = _dp_fresh(cfg, opt, 1, device)
         state = train.Checkpoint(config["resume_from"]).load_pytree(
@@ -3383,16 +3415,18 @@ def _dag_train_loop(config):
         params, opt_state = _dp_fresh(cfg, opt, 0, device)
         params = torch_utils.sync_model_params(params)
         first = 0
-    for i in range(first, 6):
+    so_far = []
+    for i in range(first, n_steps):
         params, opt_state, losses, step_ms = _dp_steps(params, opt_state, opt,
                                                        [batches[i]], cfg)
+        so_far += losses
         ckpt = None
         if i == 2:
             staged = train.make_temp_checkpoint_dir()
             train.Checkpoint(staged).save_pytree({"params": params, "opt_state": opt_state})
             ckpt = train.Checkpoint(staged)
-        train.report({"loss": losses[0], "step": i + 1, "step_ms": step_ms[0],
-                      **_worker_counts()}, checkpoint=ckpt)
+        train.report({"loss": losses[0], "losses": list(so_far), "step": i + 1,
+                      "step_ms": step_ms[0], **_worker_counts()}, checkpoint=ckpt)
 
 
 def _dag_train_reference(small, device):
@@ -4274,6 +4308,517 @@ def phase_data(shared: dict, device: str = "cuda", small: bool = False):
     return {**counts, "row": row}
 
 
+# Phase 19 (tune_jobs): Tune, Workflow, job submission, the state API and
+# the dashboard on one cluster. (a)'s grid of learning rates, its reports
+# (2 steps each, at most 3: ASHA's max_t) and (b)'s; every bounded wait of
+# the phase; (c)'s forward batch; the seeds of (c)'s tokens and (d)'s
+# flash inputs.
+_TUNE_LRS = (3e-4, 1e-3, 1e-4, 3e-5)
+_TUNE_STEPS_PER_REPORT = 2
+_TUNE_REPORTS = 3
+_TUNE_TRAINER_LRS = (3e-4, 1e-3)
+_TUNE_TRAINER_STEPS = 3
+_TUNE_WAIT_S = 600
+_WF_BATCH = (4, 1024)
+_WF_SEED = 200
+_JOB_SEED = 300
+
+
+def _proc_start_time() -> float:
+    """This process's start on the epoch clock, from /proc."""
+    import os
+
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        boot = next(int(line.split()[1]) for line in f if line.startswith("btime"))
+    return boot + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def _tree_checksum(tree) -> str:
+    """sha256 of every leaf's bytes, in tree_leaves order."""
+    import hashlib
+
+    from ray_tpu_torch.ops.tree import tree_leaves
+
+    h = hashlib.sha256()
+    for leaf in tree_leaves(tree):
+        h.update(leaf.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def _tune_trial(config):
+    """Phase 19 (a)'s function trainable, in a trial actor on half the
+    card: phase 9 (a)'s data-parallel bf16 GPT-2 steps (world size 1) at
+    ``config["lr"]``, a report every 2 steps with a checkpoint of the
+    parameters, its checksum, the losses so far, the step times and this
+    worker's kernel counts."""
+    import os
+    import shutil
+
+    import ray_tpu_torch
+    from ray_tpu_torch import train, tune
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.train.session import TrainSession, set_session
+
+    fn_start = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name in _COPYING:
+        w = getattr(_kernels, name)
+        w.launches = w.launches_fp32 = w.copies = 0
+    device = config["device"]
+    cfg, B, T = _dag_train_setup(config["small"])
+    opt = _dp_opt(config["lr"])
+    params, opt_state = _dp_fresh(cfg, opt, 0, device)
+    batches = _step_batches(cfg, _TUNE_REPORTS * _TUNE_STEPS_PER_REPORT, B, T, device)
+    info = {"pid": os.getpid(), "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "worker_id": ray_tpu_torch.get_runtime_context().get_worker_id(),
+            "proc_start": _proc_start_time(), "fn_start": fn_start}
+    losses, step_ms, written = [], [], []
+    set_session(TrainSession(0, 1, 0, experiment_name="chip_smoke_tune"))
+    try:
+        steps_start = time.time()
+        for r in range(_TUNE_REPORTS):
+            chunk = batches[r * _TUNE_STEPS_PER_REPORT:(r + 1) * _TUNE_STEPS_PER_REPORT]
+            params, opt_state, got, ms = _dp_steps(params, opt_state, opt, chunk, cfg)
+            losses += got
+            step_ms += ms
+            steps_end = time.time()
+            # Straight where the trial actor keeps its r-th checkpoint, so it
+            # copies none of the ~0.5 GB. A Result takes the checkpoint of
+            # the last report the controller read, and this thread runs
+            # one report ahead of it: the two newest stay, older ones go.
+            path = os.path.join(tune.get_trial_dir(), f"checkpoint_{r:06d}")
+            train.Checkpoint(path).save_pytree({"params": params})
+            written.append(path)
+            if len(written) > 2:
+                shutil.rmtree(written.pop(0), ignore_errors=True)
+            tune.report({"loss": got[-1], "losses": list(losses), "step_ms": list(step_ms),
+                         "checksum": _tree_checksum(params), "steps_start": steps_start,
+                         "steps_end": steps_end, **info, **_worker_counts()},
+                        checkpoint=train.Checkpoint(path))
+    finally:
+        set_session(None)
+
+
+def _wf_make_batch(small):
+    """Phase 19 (c)'s first step (no lease): B x (T + 1) tokens from a seed."""
+    cfg, _, _ = _dag_train_setup(small)
+    B, T = (2, 32) if small else _WF_BATCH
+    return torch.randint(0, cfg.vocab_size, (B, T + 1),
+                         generator=torch.Generator().manual_seed(_WF_SEED))
+
+
+def _row_losses(params, tokens, cfg):
+    """The mean next-token cross-entropy of each row of ``tokens``."""
+    from ray_tpu_torch import models
+
+    logits = models.forward(params, tokens[:, :-1], cfg)
+    B, T = tokens[:, 1:].shape
+    return torch.nn.functional.cross_entropy(
+        logits.reshape(B * T, -1).float(), tokens[:, 1:].reshape(-1),
+        reduction="none").reshape(B, T).mean(dim=1)
+
+
+def _wf_forward_loss(tokens, small, device, counter_path):
+    """Phase 19 (c)'s GPU step (num_gpus=0.5): GPT-2 124M's forward with
+    the flash kernel (weights from seed 0) on the tokens; returns the
+    per-row losses as a tensor on ``device``. Each run appends to
+    ``counter_path`` and writes beside it this worker's kernel counts,
+    its process's start and the step's start and end."""
+    from ray_tpu_torch import models
+    from ray_tpu_torch.ops import _kernels
+
+    started = time.time()
+    with open(counter_path, "a") as f:
+        f.write("x")
+    for name in _COPYING:
+        w = getattr(_kernels, name)
+        w.launches = w.launches_fp32 = w.copies = 0
+    cfg, _, _ = _dag_train_setup(small)
+    params = models.init_params(torch.Generator(device=device).manual_seed(0), cfg,
+                                device=device)
+    with torch.inference_mode():
+        losses = _row_losses(params, tokens.to(device), cfg)
+    if losses.is_cuda:
+        torch.cuda.synchronize()
+    with open(counter_path + ".counts", "w") as f:
+        json.dump({**_worker_counts(), "proc_start": _proc_start_time(), "started": started,
+                   "ended": time.time()}, f)
+    return losses
+
+
+def _wf_finalize(losses, approval, flag_path):
+    """Phase 19 (c)'s last step (no lease): fails while ``flag_path`` is
+    missing; else the losses on the host and the event's payload."""
+    import os
+
+    if not os.path.exists(flag_path):
+        raise RuntimeError("finalize fails on its first run")
+    return {"losses": losses.cpu(), "approval": approval, "mean": float(losses.mean())}
+
+
+def _load_stored_step(path):
+    """Phase 19 (c)'s check, in a worker that sees no card: the stored
+    step value loads (a CPU tensor); its device, dtype and the devices
+    this worker sees."""
+    import os
+
+    import cloudpickle
+
+    with open(path, "rb") as f:
+        value = cloudpickle.loads(f.read())
+    return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device": value.device.type, "dtype": str(value.dtype), "value": value}
+
+
+def _seeded_flash_checksum(device):
+    """Phase 19 (d)'s work: the bf16 flash forward on q, k, v drawn from a
+    seed on ``device``; sha256 of the output's bytes."""
+    import hashlib
+
+    from ray_tpu_torch.ops.attention import flash_attention
+
+    g = torch.Generator(device=device).manual_seed(_JOB_SEED)
+    q, k, v = (torch.randn(_RUNTIME_FLASH_SHAPE, generator=g, device=device,
+                           dtype=torch.float32).to(torch.bfloat16) for _ in range(3))
+    with torch.inference_mode():
+        out = flash_attention(q, k, v, causal=True)
+    return hashlib.sha256(out.contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def _job_flash_task(device):
+    """Phase 19 (d)'s num_gpus=1 task of the job: the checksum, this
+    worker's kernel counts and the devices it sees."""
+    import os
+
+    from ray_tpu_torch.ops import _kernels
+
+    for name in _COPYING:
+        w = getattr(_kernels, name)
+        w.launches = w.launches_fp32 = w.copies = 0
+    digest = _seeded_flash_checksum(device)
+    return digest, {**_worker_counts(), "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def _job_main(device):
+    """Phase 19 (d)'s job entrypoint: joins the cluster it was submitted to
+    (RAY_TPU_ADDRESS), runs one num_gpus=1 task and prints its checksum,
+    its counts and the devices this driver sees."""
+    import os
+
+    import ray_tpu_torch
+
+    ray_tpu_torch.init()
+    task = ray_tpu_torch.remote(num_gpus=1)(_job_flash_task)
+    digest, counts = ray_tpu_torch.get(task.remote(device), timeout=_TUNE_WAIT_S)
+    print("JOB_CHECKSUM " + digest)
+    print("JOB_COUNTS " + json.dumps(counts))
+    print("JOB_DRIVER_VISIBLE " + repr(os.environ.get("CUDA_VISIBLE_DEVICES")))
+
+
+def _bounded(fn, what, timeout=_TUNE_WAIT_S):
+    """``fn()`` within ``timeout`` seconds; its error re-raised."""
+    import threading
+
+    box = {}
+
+    def call():
+        try:
+            box["value"] = fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            box["error"] = e
+
+    th = threading.Thread(target=call, daemon=True, name=what)
+    th.start()
+    th.join(timeout)
+    _check(not th.is_alive(), f"{what} did not finish in {timeout} s")
+    if "error" in box:
+        raise box["error"]
+    return box["value"]
+
+
+def phase_tune_jobs(shared: dict, device: str = "cuda", small: bool = False):
+    """Phase 19: on one cluster, (a) a Tuner over phase 9 (a)'s bf16 GPT-2
+    steps (B=8, T=1024, FusedClipAdamW) as a function trainable on half a
+    card per trial (with_resources {"gpu": 0.5}), four learning rates, two
+    trials at a time, ASHA (max_t 3 reports of 2 steps): no trial error,
+    two trials overlapping on device "0", the 3e-4 trial's losses phase
+    9's (or the driver's) bit for bit, the best Result's checkpoint loaded
+    here equal to the checksum of its last report, each kernel 12 launches
+    a step; (b) Tuner(TorchTrainer) over phase 9's loop on a worker of
+    half a card, two learning rates, 3 steps: the 3e-4 trial's losses
+    phase 9's; (c) a workflow whose GPU step (num_gpus=0.5) returns GPT-2's
+    per-row losses as a CUDA tensor, gated by an event the driver
+    triggers, whose last step fails once: run raises, resume returns the
+    driver's forward bit for bit, the GPU step ran once and its stored
+    value loads in a worker without a card; (d) the dashboard, a job
+    (JobSubmissionClient) whose num_gpus=1 task prints the driver's flash
+    checksum, the cluster's GPU, the trial actors in the state API and
+    /api/actors, the job's task in summarize_tasks, /metrics and the
+    Grafana JSON. Returns the workers' kernel counts and the row.
+    ``small`` (the CPU test): a tiny model at B=2, T=32."""
+    import os
+    import tempfile
+    import threading
+    import uuid
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train, tune, workflow
+    from ray_tpu_torch.dashboard import start_dashboard, stop_dashboard
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+    from ray_tpu_torch.util import state as us
+
+    t_phase = time.perf_counter()
+    row = {"device": device}
+    cfg, B, T = _dag_train_setup(small)
+    per_step = cfg.n_layers if device == "cuda" else 0
+    ref = shared.get("train_backend") or _dag_train_reference(small, device)
+    ref_losses = ref["losses"]
+    counts = {"launches": dict.fromkeys(_KERNELS, 0), "copies": dict.fromkeys(_COPYING, 0)}
+    earlier = _cluster_processes(os.getpid())
+    rt.init(object_store_memory=256 << 20, **({} if device == "cuda" else {"num_gpus": 1}))
+    pids = set()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    try:
+        # (a) The Tuner over GPT-2 trials on half a card each.
+        t = time.time()
+        grid = _bounded(lambda: tune.Tuner(
+            tune.with_resources(_tune_trial, {"gpu": 0.5}),
+            param_space={"lr": tune.grid_search(list(_TUNE_LRS)), "device": device,
+                         "small": small},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min", max_concurrent_trials=2,
+                scheduler=tune.ASHAScheduler(time_attr="training_iteration",
+                                             max_t=_TUNE_REPORTS, grace_period=1,
+                                             reduction_factor=2)),
+            run_config=tune.RunConfig(name="gpt2", storage_path=tmp)).fit(), "(a)'s fit")
+        fit_s = time.time() - t
+        pids |= _cluster_processes(os.getpid()) - earlier
+        _check(grid.num_errors == 0, f"trial errors: {grid.errors}")
+        trials = []
+        for r in grid:
+            m = r.metrics
+            n = len(m["losses"])
+            trials.append({
+                "lr": r.config["lr"], "reports": len(r.metrics_history), "steps": n,
+                "losses": m["losses"], "visible": m["visible"], "pid": m["pid"],
+                "worker_id": m["worker_id"],
+                "cold_start_s": m["fn_start"] - m["proc_start"],
+                "started_after_fit_s": m["fn_start"] - t,
+                "steps_window": [m["steps_start"] - t, m["steps_end"] - t],
+                "step_ms": m["step_ms"],
+                "step_ms_median": statistics.median(m["step_ms"][1:] or m["step_ms"]),
+                "launches": m["launches"], "checksum": m["checksum"]})
+            counts = _add_counts(counts, m)
+            _check(m["visible"] == "0", f"trial lr={r.config['lr']} saw {m['visible']!r}")
+            want = [n * per_step] * 3 + [0] * 3
+            got = [m["launches"][k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                                              "flash_fwd_fp32", "flash_bwd_dq_fp32",
+                                              "flash_bwd_dkv_fp32")]
+            _check(got == want, f"trial lr={r.config['lr']} launched {got}, expected {want}")
+        by_lr = {tr["lr"]: tr for tr in trials}
+        first = by_lr[3e-4]
+        _check(first["losses"] == ref_losses[:first["steps"]],
+               f"the 3e-4 trial's losses {first['losses']} are not the driver's "
+               f"{ref_losses[:first['steps']]}")
+        windows = sorted(tr["steps_window"] for tr in trials)
+        overlapped = any(windows[i + 1][0] < windows[i][1] for i in range(len(windows) - 1))
+        _check(overlapped, f"no two trials trained at once: {windows}")
+        best = grid.get_best_result()
+        loaded = train.Checkpoint(best.checkpoint.path).load_pytree(device=device)
+        best_ok = _tree_checksum(loaded["params"]) == best.metrics["checksum"]
+        del loaded
+        row["tune"] = {
+            "trials": trials, "fit_s": fit_s, "best_lr": best.config["lr"],
+            "best_checkpoint": os.path.basename(best.checkpoint.path),
+            "best_checkpoint_equals_last_report": best_ok, "overlapped": overlapped,
+            "losses_3e-4_equal_to_driver": True,
+            "step_ms_median_phase_5": shared.get("gpt2_bf16_step_ms_median")}
+        print("[tune_jobs] tune " + json.dumps(row["tune"]))
+        _check(best_ok, "the best Result's checkpoint is not its last report's parameters")
+
+        # (b) Tuner(TorchTrainer): phase 9's loop on a worker of half a card.
+        trainer = train.TorchTrainer(
+            _dag_train_loop,
+            train_loop_config={"small": small, "device": device,
+                               "steps": _TUNE_TRAINER_STEPS},
+            scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True,
+                                               gpus_per_worker=0.5),
+            backend_config=train.TorchConfig(device=device, distributed="on",
+                                             timeout_s=300))
+        t = time.time()
+        tgrid = _bounded(lambda: tune.Tuner(
+            trainer,
+            param_space={"train_loop_config": {
+                "lr": tune.grid_search(list(_TUNE_TRAINER_LRS))}},
+            tune_config=tune.TuneConfig(metric="loss", mode="min"),
+            run_config=tune.RunConfig(name="trainer", storage_path=tmp)).fit(), "(b)'s fit")
+        tfit_s = time.time() - t
+        pids |= _cluster_processes(os.getpid()) - earlier
+        _check(tgrid.num_errors == 0, f"trainer trial errors: {tgrid.errors}")
+        tlosses = {r.config["train_loop_config"]["lr"]: r.metrics["losses"] for r in tgrid}
+        _check(tlosses[3e-4] == ref_losses[:_TUNE_TRAINER_STEPS],
+               f"the 3e-4 trainer trial's losses {tlosses[3e-4]} are not phase 9's "
+               f"{ref_losses[:_TUNE_TRAINER_STEPS]}")
+        for r in tgrid:
+            counts = _add_counts(counts, r.metrics)
+            launched = [r.metrics["launches"][k]
+                        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]
+            _check(launched == [_TUNE_TRAINER_STEPS * per_step] * 3,
+                   f"a trainer trial's worker launched {launched}")
+        row["tune_trainer"] = {"losses": tlosses, "fit_s": tfit_s,
+                               "losses_3e-4_equal_to_phase_9": True}
+        print("[tune_jobs] tune_trainer " + json.dumps(
+            {**row["tune_trainer"], "losses": {str(k): v for k, v in tlosses.items()}}))
+
+        # (c) A workflow with a GPU step, an event gate and a resume.
+        os.environ["RAY_TPU_WORKFLOW_DIR"] = os.path.join(tmp, "workflows")
+        counter, flag = os.path.join(tmp, "forward_runs"), os.path.join(tmp, "finalize_ok")
+        key, wid = f"approve-{uuid.uuid4().hex[:6]}", f"chip-smoke-{uuid.uuid4().hex[:6]}"
+        make = rt.remote(_wf_make_batch)
+        fwd = rt.remote(num_gpus=0.5, max_retries=0)(_wf_forward_loss)
+        fin = rt.remote(max_retries=0)(_wf_finalize)
+        dag = fin.bind(fwd.bind(make.bind(small), small, device, counter),
+                       workflow.wait_for_event(key, timeout_s=_TUNE_WAIT_S), flag)
+        trigger = threading.Timer(1.0, workflow.trigger_event, (key, "approved"))
+        trigger.start()
+        t_run = time.time()
+        try:
+            _bounded(lambda: workflow.run(dag, workflow_id=wid), "(c)'s run")
+            first_run = "returned"
+        except Exception as e:  # noqa: BLE001 — the class name is the outcome
+            first_run = type(e).__name__
+        run_s = time.time() - t_run
+        trigger.join(timeout=30)
+        _check(first_run != "returned" and workflow.get_status(wid) == "FAILED",
+               f"the first run {first_run}, status {workflow.get_status(wid)}")
+        with open(flag, "w"):
+            pass
+        t = time.time()
+        out = _bounded(lambda: workflow.resume(wid), "(c)'s resume")
+        resume_s = time.time() - t
+        pids |= _cluster_processes(os.getpid()) - earlier
+        with open(counter) as f:
+            runs = len(f.read())
+        with open(counter + ".counts") as f:
+            wf_counts = json.load(f)
+        counts = _add_counts(counts, wf_counts)
+        tokens = _wf_make_batch(small)
+        from ray_tpu_torch import models
+
+        params = models.init_params(torch.Generator(device=device).manual_seed(0), cfg,
+                                    device=device)
+        with torch.inference_mode():
+            want = _row_losses(params, tokens.to(device), cfg).cpu()
+        del params
+        store = workflow._Store(wid)
+        step = next(n for n in sorted(os.listdir(store.steps_dir)) if "forward_loss" in n)
+        stored = rt.get(rt.remote(_load_stored_step).remote(
+            os.path.join(store.steps_dir, step)), timeout=_TUNE_WAIT_S)
+        row["workflow"] = {
+            "first_run": first_run, "status": workflow.get_status(wid), "run_s": run_s,
+            "resume_s": resume_s, "forward_step": {
+                "worker_started_after_run_s": wf_counts["proc_start"] - t_run,
+                "started_after_run_s": wf_counts["started"] - t_run,
+                "s": wf_counts["ended"] - wf_counts["started"]},
+            "forward_runs": runs, "losses": out["losses"].tolist(),
+            "approval": out["approval"], "bitwise_equal_to_driver": torch.equal(
+                out["losses"], want),
+            "stored_step": {k: v for k, v in stored.items() if k != "value"},
+            "launches": wf_counts["launches"]}
+        print("[tune_jobs] workflow " + json.dumps(row["workflow"]))
+        _check(runs == 1, f"the GPU step ran {runs} times")
+        _check(row["workflow"]["bitwise_equal_to_driver"],
+               f"the workflow's losses {out['losses'].tolist()} are not the driver's "
+               f"{want.tolist()}")
+        _check(out["approval"] == "approved" and row["workflow"]["status"] == "SUCCESS",
+               f"the gate gave {out['approval']!r}, status {row['workflow']['status']}")
+        _check(stored["visible"] == "" and stored["device"] == "cpu"
+               and torch.equal(stored["value"], want),
+               f"the stored GPU step loaded as {row['workflow']['stored_step']}")
+        _check(wf_counts["launches"]["flash_fwd"] == per_step,
+               f"the GPU step launched {wf_counts['launches']}")
+
+        # (d) The dashboard, a job on the card, the state API.
+        port = start_dashboard()
+        try:
+            want_digest = _seeded_flash_checksum(device)
+            client = JobSubmissionClient()
+            t = time.time()
+            job = client.submit_job(
+                entrypoint=f"{sys.executable} -c \"import chip_smoke; "
+                           f"chip_smoke._job_main('{device}')\"")
+            status = client.wait_until_finished(job, timeout_s=_TUNE_WAIT_S)
+            job_s = time.time() - t
+            logs = client.get_job_logs(job)
+            pids |= _cluster_processes(os.getpid()) - earlier
+            _check(status == "SUCCEEDED", f"the job ended {status}: {logs[-2000:]}")
+            _check("JOB_CHECKSUM " + want_digest in logs,
+                   f"the job's logs lack the driver's checksum {want_digest}: {logs[-2000:]}")
+            job_counts = json.loads(next(line.split(" ", 1)[1] for line in logs.splitlines()
+                                         if line.startswith("JOB_COUNTS ")))
+            counts = _add_counts(counts, job_counts)
+            gpus = _http_json(port, "/api/cluster")[1]["resources_total"].get("GPU")
+            # The trial actors by their workers (a function trial runs on a
+            # thread of its actor, which has no task context of its own).
+            dash_actors = {a["worker_id"] for a in _http_json(port, "/api/actors")[1]["actors"]}
+            state_actors = {a["worker_id"] for a in us.list_actors(limit=100000)}
+            trial_actors = {tr["worker_id"] for tr in trials}
+            summary = us.summarize_tasks().get("_job_flash_task", {})
+            import urllib.request
+
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=60) as r:
+                metrics = r.read().decode()
+            code, grafana, _ = _http_json(port, "/api/grafana_dashboard")
+            row["jobs"] = {
+                "status": status, "job_s": job_s, "checksum": want_digest,
+                "job_task_visible": job_counts["visible"],
+                "job_driver_visible": next((line.split(" ", 1)[1] for line in logs.splitlines()
+                                            if line.startswith("JOB_DRIVER_VISIBLE ")), None),
+                "dashboard_gpu_total": gpus,
+                "trial_actors_in_state_api": sorted(trial_actors & state_actors) == sorted(
+                    trial_actors),
+                "trial_actors_in_dashboard": sorted(trial_actors & dash_actors) == sorted(
+                    trial_actors),
+                "job_task_summary": summary,
+                "tasks_finished_in_metrics": "ray_tpu_tasks_finished_total" in metrics,
+                "grafana_panels": len(grafana["panels"]), "launches": job_counts["launches"]}
+            print("[tune_jobs] jobs " + json.dumps(row["jobs"]))
+            _check(gpus == 1, f"/api/cluster shows GPU {gpus}")
+            _check(row["jobs"]["trial_actors_in_state_api"]
+                   and row["jobs"]["trial_actors_in_dashboard"],
+                   "(a)'s trial actors are missing from the state API or /api/actors")
+            _check(summary.get("total", 0) >= 1, f"summarize_tasks: {summary}")
+            _check(row["jobs"]["tasks_finished_in_metrics"] and code == 200,
+                   "/metrics or /api/grafana_dashboard")
+            _check(job_counts["visible"] == "0" and job_counts["launches"]["flash_fwd"]
+                   == (1 if device == "cuda" else 0),
+                   f"the job's task saw {job_counts['visible']!r} and launched "
+                   f"{job_counts['launches']}")
+        finally:
+            stop_dashboard()
+    finally:
+        rt.shutdown()
+        os.environ.pop("RAY_TPU_WORKFLOW_DIR", None)
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    deadline = time.time() + 10
+    while _live(pids) and time.time() < deadline:
+        time.sleep(0.1)
+    row["pids_left_after_shutdown"] = _live(pids)
+    row["phase_s"] = time.perf_counter() - t_phase
+    _check(not row["pids_left_after_shutdown"],
+           f"processes left after shutdown(): {row['pids_left_after_shutdown']}")
+    print("[tune_jobs] " + json.dumps({k: row[k] for k in ("phase_s",
+                                                           "pids_left_after_shutdown")}))
+    return {**counts, "row": row}
+
+
 # The main path's kernels as the kernels line names them: (the wrapper in
 # ray_tpu_torch.ops._kernels that launches it, whether it is the fp32
 # kernel, the source under ray_tpu_torch/csrc that holds it, the line of
@@ -4366,7 +4911,8 @@ def main() -> int:
              ("dag", lambda: phase_dag(shared), False),
              ("serve_apps", lambda: phase_serve_apps(shared), False),
              ("rllib_remote", lambda: phase_rllib_remote(shared), False),
-             ("data", lambda: phase_data(shared), False))
+             ("data", lambda: phase_data(shared), False),
+             ("tune_jobs", lambda: phase_tune_jobs(shared), False))
     launches = dict.fromkeys(_KERNELS, 0)
     for name, run, must_launch in paths:
         for w in wrappers:
@@ -4375,7 +4921,7 @@ def main() -> int:
         total = {"launches": _launch_counts(),
                  "copies": {w.__name__: w.copies for w in wrappers}}
         if name in ("parallel", "train_backend", "rllib_more", "runtime", "dag",
-                    "serve_apps", "rllib_remote", "data"):
+                    "serve_apps", "rllib_remote", "data", "tune_jobs"):
             total = _add_counts(total, result)
         counted, copies = total["launches"], total["copies"]
         print(f"[{name}] launches " + json.dumps(counted))

@@ -18,9 +18,11 @@ handles, batching, multiplexing, an HTTP/SSE/WebSocket and gRPC proxy)
 with OpenAI-style LLM serving over it, Data (streaming datasets over the
 core's tasks and actor pools) with batch LLM inference over it, Train
 (the trainer and its worker group on the core, process-group setup,
-gradient and parameter sync, checkpoints) and RLlib (env runners and
-learners local or as actors of the core). ``interop.params_from_jax``
-carries a JAX parameter tree across.
+gradient and parameter sync, checkpoints), RLlib (env runners and
+learners local or as actors of the core), Tune (trial actors, searchers,
+schedulers, over functions, Trainables and the trainer), durable
+workflows, the state API, job submission and the dashboard.
+``interop.params_from_jax`` carries a JAX parameter tree across.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU.
@@ -71,7 +73,8 @@ from ray_tpu_torch import exceptions
 
 # Submodules loaded on first attribute access (PEP 562).
 _LAZY = ("accelerators", "dag", "data", "experimental", "interop", "kernel_report", "llm",
-         "models", "ops", "parallel", "rllib", "serve", "train", "tune", "util")
+         "models", "ops", "parallel", "rllib", "serve", "train", "tune", "util",
+         "workflow")
 
 
 def __getattr__(name):

@@ -1,8 +1,9 @@
 """ray_tpu_torch.util: placement groups, scheduling strategies, custom
 serializers, user trace spans, actor pools, queues, host collective
-groups (``util.collective``) and user metrics (``util.metrics``:
-Counter, Gauge, Histogram, the Prometheus text); reference: ray.util.
-The rest of ray_tpu.util (the metrics exporter, the state API,
+groups (``util.collective``), user metrics (``util.metrics``: Counter,
+Gauge, Histogram, the Prometheus text), the state API (``util.state``)
+and the Prometheus/Grafana exporter (``util.metrics_export``);
+reference: ray.util. The rest of ray_tpu.util (check_serialize,
 multiprocessing, dask, joblib) waits for ROADMAP item 6g."""
 
 from ray_tpu_torch.util.actor_pool import ActorPool

@@ -4,7 +4,7 @@ line, phase 6's routing and f32 GEMM helpers, phase 7's leaf-wise
 comparison, shard slicing and the launch counts its ranks report, and
 phase 8's merged-LoRA reference, token check and JSON prefix check,
 phase 9's resumed-run check and data-parallel limit, phase 10's
-reading of a pipeline rank's failure, and phases 11-18 run on the CPU
+reading of a pipeline rank's failure, and phases 11-19 run on the CPU
 (phase 13's two-agent CartPole against two CartPoles; phase 14's
 workers' launch counts reach the kernels line)."""
 
@@ -763,3 +763,34 @@ def test_data_phase_runs_on_the_cpu(capsys):
     assert set(out["launches"]) == set(chip_smoke._KERNELS)
     assert set(out["launches"].values()) == {0}
     assert "[data] batch_inference " in capsys.readouterr().out
+
+
+def test_tune_jobs_phase_runs_on_the_cpu(capsys):
+    """Phase 19 end to end on the CPU (a tiny model at B=2, T=32; phase
+    9's losses from the driver): the Tuner's trials on half-card leases
+    (resources only) pinned to "0" and overlapping, the 3e-4 trial's
+    losses and the trainer trial's the driver's bit for bit, the best
+    checkpoint its last report's, the workflow resumed once with its GPU
+    step run once and stored as a CPU tensor, the job's task printing
+    the driver's checksum, the trial actors in the state API and on the
+    dashboard, no process left; no kernel launch on the CPU."""
+    shared = {"train_backend": chip_smoke._dag_train_reference(True, "cpu")}
+    out = chip_smoke.phase_tune_jobs(shared, device="cpu", small=True)
+    row = out["row"]
+    tune = row["tune"]
+    assert sorted(t["lr"] for t in tune["trials"]) == sorted(chip_smoke._TUNE_LRS)
+    assert tune["overlapped"] and tune["best_checkpoint_equals_last_report"]
+    assert all(t["visible"] == "0" for t in tune["trials"])
+    assert row["tune_trainer"]["losses_3e-4_equal_to_phase_9"]
+    wf = row["workflow"]
+    assert wf["first_run"] != "returned" and wf["status"] == "SUCCESS"
+    assert wf["forward_runs"] == 1 and wf["bitwise_equal_to_driver"]
+    assert wf["stored_step"] == {"visible": "", "device": "cpu", "dtype": "torch.float32"}
+    jobs = row["jobs"]
+    assert jobs["status"] == "SUCCEEDED" and jobs["dashboard_gpu_total"] == 1
+    assert jobs["trial_actors_in_state_api"] and jobs["trial_actors_in_dashboard"]
+    assert jobs["job_task_visible"] == "0" and jobs["job_driver_visible"] == "''"
+    assert row["pids_left_after_shutdown"] == []
+    assert set(out["launches"]) == set(chip_smoke._KERNELS)
+    assert set(out["launches"].values()) == {0}
+    assert "[tune_jobs] jobs " in capsys.readouterr().out

@@ -71,7 +71,10 @@ missing = sorted(({"ray_tpu_torch.ops.moe", "ray_tpu_torch.ops.optim",
                      "serve.multiplex", "serve.proxy", "serve.replica",
                      "serve.scheduler", "llm.serving", "llm.batch", "data",
                      "data.block", "data.datasource", "data.executor",
-                     "data.actor_pool", "data.dataset", "data.preprocessors")})
+                     "data.actor_pool", "data.dataset", "data.preprocessors",
+                     "tune.search", "tune.schedulers", "tune.tuner", "workflow",
+                     "util.state", "util.metrics_export", "job_submission",
+                     "dashboard")})
                  - set(sys.modules))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "ray_tpu"
@@ -86,14 +89,15 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, missing, bad = out.stdout.split(" ", 2)
-    assert int(n_modules) >= 146
+    assert int(n_modules) >= 154
     assert missing == "[]"  # the MoE ops, the optimizers, the parallel slice,
     # the LLM plane's paged KV, LoRA, guided and pipeline modules, the
     # Train backend, RLlib (multi-agent and DreamerV3 too), Tune's
     # Trainable, the exceptions and the task/actor core (_private, the
     # API, the accelerator managers, util), the DAGs and their channels, util.collective,
-    # the trainer, Serve, util.metrics, the LLM's serving deployments, Data
-    # and the LLM's batch stage were imported
+    # the trainer, Serve, util.metrics, the LLM's serving deployments, Data,
+    # the LLM's batch stage, Tune, Workflow, the state API, the metrics
+    # exporter, job submission and the dashboard were imported
     assert bad.strip() == "[]"
 
 
@@ -159,7 +163,8 @@ def test_package_docstrings_name_what_is_ported():
     """The package and the LLM plane say that Serve and the serving
     deployments are here (no longer a later slice), and util names its
     metrics; the package names Data, the LLM plane its batch stage, and
-    RLlib its remote groups (no item still waited for)."""
+    RLlib its remote groups (no item still waited for); Tune, Workflow and
+    util's state API and exporter are named as ported."""
     import ray_tpu_torch
     from ray_tpu_torch import llm, util
 
@@ -174,3 +179,15 @@ def test_package_docstrings_name_what_is_ported():
     assert "later slices" not in llm.__doc__ and "LLMServer" in llm.__doc__
     assert {"LLMServer", "build_openai_app", "build_disaggregated_app"} <= set(llm.__all__)
     assert "util.metrics" in util.__doc__
+    # Tune, Workflow, the state API and the exporter are here (item 6f and
+    # 6g's first part): the docstrings no longer send them to a later item
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.tune import trainable
+
+    assert "workflow" in ray_tpu_torch._LAZY
+    assert "6f" not in tune.__doc__ and "runtime core" not in tune.__doc__
+    assert "6f" not in trainable.__doc__ and "TrialActor" in trainable.__doc__
+    assert {"Tuner", "TuneConfig", "ASHAScheduler", "with_resources", "report",
+            "RunConfig"} <= set(tune.__all__)
+    assert "util.state" in util.__doc__ and "util.metrics_export" in util.__doc__
+    assert "the state API" not in util.__doc__.split("waits")[-1]

@@ -3,7 +3,8 @@ ray_tpu_torch/src/ (the Makefile and the C/C++ sources of the object
 store, the spec codec, the event loop, the scheduler and the channel
 ring, which the port builds on first import), and the build directory
 falls back to a per-user cache where the one beside the package cannot
-be written (a read-only site-packages)."""
+be written (a read-only site-packages). It also carries the dashboard's
+web UI (ray_tpu_torch/dashboard_ui.html)."""
 
 import glob
 import importlib.util
@@ -53,6 +54,8 @@ def test_wheel_carries_the_native_sources(tmp_path):
     names = set(zipfile.ZipFile(wheel).namelist())
     assert set(PORT_SOURCES) <= names, sorted(set(PORT_SOURCES) - names)
     assert {"ray_tpu_torch/csrc/flash_fwd.cu", "ray_tpu_torch/csrc/hopper.cuh"} <= names
+    # the dashboard serves its web UI from the installed package
+    assert "ray_tpu_torch/dashboard_ui.html" in names
 
 
 def _install_native_build(pkg_dir):
